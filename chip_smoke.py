@@ -1,0 +1,478 @@
+"""Smoke run of the PyTorch port on one CUDA card.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, holds each
+against its plain PyTorch version on the card (K1 support counting exactly,
+K2 rule matching within rtol=1e-5, atol=1e-6 and bit-identical run to run),
+times both, then drives the main path once through the port's entry points
+at the FIMI T10I4D100K shape: ``mine`` -> ``compile_rulebook`` ->
+``place_rulebook`` -> ``recommend``, checking the results against the plain
+path and the Python oracle and that every kernel was launched.  Any failed
+check raises, and the script exits non-zero.  The last line of standard
+output is ``{"ok": true, "device": {...}}``; the line before it lists the
+kernels with their launches, errors and times.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+
+# Published H100 SXM rates (NVIDIA data sheet, 700 W): HBM bandwidth and the
+# fp32 rate outside the tensor cores.  The int32 rate is the same data
+# sheet's SM count and boost clock with 64 int32 lanes per SM (half the 128
+# fp32 lanes behind the 67 TFLOP/s figure): 132 x 64 x 1.98 GHz.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+INT32_OP_PER_S = 132 * 64 * 1.98e9
+
+RTOL, ATOL = 1e-5, 1e-6
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls (CUDA events)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def alternate(plain, kernel, kernel_reps: int, plain_reps: int = 1):
+    """Warm both, then time plain / kernel / kernel / plain; mean of each."""
+    plain()
+    kernel()
+    torch.cuda.synchronize()
+    p1 = cuda_ms(plain, plain_reps)
+    k1 = cuda_ms(kernel, kernel_reps)
+    k2 = cuda_ms(kernel, kernel_reps)
+    p2 = cuda_ms(plain, plain_reps)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound(byte_count: float, ops_ms: float):
+    """(bound_ms, bound_by): the larger of the bytes' time at the HBM rate
+    and the operations' time."""
+    bytes_ms = byte_count / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def words(x: np.ndarray, dev) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.uint32).view(np.int32)).to(dev)
+
+
+# ------------------------------------------------------------ problems -------
+def count_problem(n, i, k, seed):
+    """Random packed (transactions, candidates, lengths), as in the JAX
+    package's kernel tests, with some len = -1 padding rows."""
+    from repro_torch.core.itemsets import pack_bits
+
+    rng = np.random.default_rng(seed)
+    t = (rng.random((n, i)) < 0.3).astype(np.int8)
+    sizes = rng.integers(1, min(6, i) + 1, size=k)
+    c = np.zeros((k, i), np.int8)
+    for row, s in enumerate(sizes):
+        c[row, rng.choice(i, size=s, replace=False)] = 1
+    lengths = c.sum(1).astype(np.int32)
+    pad = rng.random(k) < 0.1
+    c[pad], lengths[pad] = 0, -1
+    return pack_bits(t), pack_bits(c), lengths
+
+
+def rule_problem(b, i, r, seed):
+    """Random (baskets, antecedents, lengths, consequents, scores) with 20%
+    padding rules (zero words, len = -1, score 0)."""
+    from repro_torch.core.itemsets import itemsets_to_packed, pack_bits
+
+    rng = np.random.default_rng(seed)
+    baskets = pack_bits((rng.random((b, i)) < 0.3).astype(np.int8))
+    na = rng.integers(1, min(4, i) + 1, r)
+    nc = rng.integers(1, min(3, i) + 1, r)
+    ante = np.concatenate([itemsets_to_packed(np.sort(rng.choice(i, m, replace=False))[None], i) for m in na])
+    cons = np.concatenate([itemsets_to_packed(np.sort(rng.choice(i, m, replace=False))[None], i) for m in nc])
+    lengths = na.astype(np.int32)
+    scores = rng.random(r).astype(np.float32)
+    pad = rng.choice(r, max(1, r // 5), replace=False)
+    ante[pad], cons[pad], lengths[pad], scores[pad] = 0, 0, -1, 0
+    return baskets, ante, lengths, cons, scores
+
+
+# -------------------------------------------------------------- phases -------
+def k1_sweep(ops, dev):
+    shapes = [(8, 16, 4), (100, 64, 33), (256, 128, 128), (300, 130, 257), (512, 512, 300),
+              (200, 1100, 70)]
+    for mode in ("and_cmp", "popcount"):
+        for n, i, k in shapes:
+            tp, cp, ln = count_problem(n, i, k, seed=n + i + k)
+            t, c, l_ = words(tp, dev), words(cp, dev), torch.from_numpy(ln).to(dev)
+            got = ops.support_count_packed(t, c, l_, mode=mode, impl="kernel")
+            want = ops.support_count_packed(t, c, l_, mode=mode, impl="ref")
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"K1 {mode} {(n, i, k)}: counts differ from the plain version")
+    log(f"[k1] sweep: {2 * len(shapes)} cases exactly equal to the plain version (both modes)")
+
+
+def k1_main_shape(ops, t_dev, cands, num_items, dev, card):
+    """K1 at the main path's level-2 pass: the DB against the level-2
+    candidates padded to their bucket, both modes, timed."""
+    from repro_torch.core.itemsets import itemsets_to_packed
+
+    kp = 1
+    while kp < max(256, cands.shape[0]):
+        kp *= 2
+    c_host = np.zeros((kp, t_dev.shape[1]), np.uint32)
+    c_host[: cands.shape[0]] = itemsets_to_packed(cands, num_items)
+    ln = np.full(kp, -1, np.int32)
+    ln[: cands.shape[0]] = cands.shape[1]
+    c, l_ = words(c_host, dev), torch.from_numpy(ln).to(dev)
+    n, w = t_dev.shape
+    out = {}
+    for mode in ("and_cmp", "popcount"):
+        got = ops.support_count_packed(t_dev, c, l_, mode=mode, impl="kernel")
+        want = ops.support_count_packed(t_dev, c, l_, mode=mode, impl="ref")
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K1 {mode} at N={n} Kp={kp} W={w}: counts differ from the plain version")
+        ms, plain_ms = alternate(
+            lambda: ops.support_count_packed(t_dev, c, l_, mode=mode, impl="ref"),
+            lambda: ops.support_count_packed(t_dev, c, l_, mode=mode, impl="kernel"),
+            kernel_reps=5,
+        )
+        dense_tests = n * kp * w
+        needed_tests = n * int(((c != 0).sum(1) * (l_ >= 0)).sum().item())
+        byte_count = 4 * (n * w + kp * w + kp + kp)
+        bound_ms, bound_by = bound(byte_count, needed_tests / INT32_OP_PER_S * 1e3)
+        out[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         max_abs_err=float((got - want).abs().max().item()))
+        log(f"[k1] {mode} N={n} Kp={kp} W={w}: exact; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; "
+            f"bound {bound_ms:.4f} ms ({needed_tests:.3e} word tests on candidate words that hold "
+            f"a bit, at {INT32_OP_PER_S:.3e} int32 op/s); dense-count bound "
+            f"{dense_tests / INT32_OP_PER_S * 1e3:.3f} ms ({dense_tests:.3e} = N*Kp*W word tests) [{card}]")
+    return out
+
+
+def k2_sweep(ops, dev):
+    shapes = [(8, 16, 4), (100, 37, 33), (64, 96, 300), (33, 130, 257), (16, 31, 128)]
+    for b, i, r in shapes:
+        bk, a, ln, c, s = rule_problem(b, i, r, seed=b + i + r)
+        args = (words(bk, dev), words(a, dev), torch.from_numpy(ln).to(dev), words(c, dev),
+                torch.from_numpy(s).to(dev))
+        got = ops.rule_match(*args, num_items=i, impl="kernel")
+        again = ops.rule_match(*args, num_items=i, impl="kernel")
+        want = ops.rule_match(*args, num_items=i, impl="ref")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        if not torch.equal(got, again):
+            raise AssertionError(f"K2 {(b, i, r)}: two runs differ")
+    # all-padding rules and zero baskets score zero
+    bk, a, ln, c, s = rule_problem(20, 64, 40, seed=9)
+    w = bk.shape[1]
+    z = torch.zeros((12, w), dtype=torch.int32, device=dev)
+    out = ops.rule_match(words(bk, dev), z, torch.full((12,), -1, dtype=torch.int32, device=dev), z,
+                         torch.zeros(12, device=dev), num_items=64, impl="kernel")
+    out2 = ops.rule_match(torch.zeros((8, w), dtype=torch.int32, device=dev), words(a, dev),
+                          torch.from_numpy(ln).to(dev), words(c, dev), torch.from_numpy(s).to(dev),
+                          num_items=64, impl="kernel")
+    torch.cuda.synchronize()
+    if torch.count_nonzero(out) or torch.count_nonzero(out2):
+        raise AssertionError("K2: padding rules or zero baskets scored non-zero")
+    log(f"[k2] sweep: {len(shapes)} shapes within rtol={RTOL} atol={ATOL} and bit-identical "
+        "across runs; all-padding rules and zero baskets score 0")
+
+
+def k2_main_shape(ops, rb, b_words, dev, card):
+    """K2 at the main path's batch: 1024 baskets against the mined rulebook."""
+    from repro_torch.kernels import ref
+
+    b = words(b_words, dev)
+    args = (b, rb.ante_packed, rb.ante_len, rb.cons_packed, rb.scores)
+    got = ops.rule_match(*args, impl="kernel")
+    again = ops.rule_match(*args, impl="kernel")
+    want = ops.rule_match(*args, impl="ref")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    if not torch.equal(got, again):
+        raise AssertionError("K2 main shape: two runs differ")
+    ms, plain_ms = alternate(lambda: ops.rule_match(*args, impl="ref"),
+                             lambda: ops.rule_match(*args, impl="kernel"), kernel_reps=20, plain_reps=3)
+    nb, w = b.shape
+    r = rb.ante_packed.shape[0]
+    dense_flops = 2 * nb * r * 32 * w
+    # what these inputs need: a word test per antecedent word that holds a
+    # bit, and two flops per (matched rule, consequent item)
+    valid = rb.ante_len >= 0
+    needed_tests = nb * int(((rb.ante_packed != 0).sum(1) * valid).sum().item())
+    cons_items = ref.popcount32(rb.cons_packed).sum(1).to(torch.float32)
+    matched_items = 0.0
+    for b0 in range(0, nb, 64):
+        blk = b[b0 : b0 + 64]
+        hit = ((blk[:, None, :] & rb.ante_packed[None]) == rb.ante_packed[None]).all(-1) & valid
+        matched_items += float((hit.to(torch.float32) @ cons_items).sum().item())
+    needed_flops = 2 * matched_items
+    byte_count = 4 * (nb * w + 2 * r * w + 2 * r + nb * 32 * w)
+    ops_ms = max(needed_tests / INT32_OP_PER_S, needed_flops / FP32_FLOP_PER_S) * 1e3
+    bound_ms, bound_by = bound(byte_count, ops_ms)
+    err = float((got - want).abs().max().item())
+    log(f"[k2] B={nb} R={r} W={w}: max |kernel - plain| {err:.3e}, bit-identical across runs; "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{byte_count:.3e} B, {needed_tests:.3e} antecedent word tests, {needed_flops:.3e} fan-out "
+        f"flop of matched rules); dense-count bound {dense_flops / FP32_FLOP_PER_S * 1e3:.4f} ms "
+        f"({dense_flops:.3e} = 2*B*R*32W fp32 flop at {FP32_FLOP_PER_S:.2e}/s) [{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+
+
+class PhaseTimes:
+    """Collects the level loop's candidate-generation times (its ``obs`` hook)."""
+
+    def __init__(self):
+        self.candidate_gen_s = 0.0
+
+    def on_level_start(self, k, n):
+        pass
+
+    def on_level_end(self, k, n):
+        pass
+
+    def add_phase(self, name, t0, t1):
+        self.candidate_gen_s += t1 - t0
+
+
+def mine_breakdown(db, cfg, dev, card):
+    """The mine again, through the same functions, with its phases timed:
+    DB placement, candidate generation, counting (host wall of the passes,
+    and device time of the K1 launches by CUDA events)."""
+    from repro_torch.core import apriori
+
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    t_dev = apriori.place_db(db, cfg, dev)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t_start
+    step = apriori.make_count_step(cfg)
+    events = []
+
+    def timed_step(t, c, ln):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = step(t, c, ln)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    count_s = [0.0]
+
+    def count_fn(cands, k):
+        t0 = time.perf_counter()
+        out = apriori._count_level(timed_step, t_dev, cands, db.shape[1], cfg)
+        count_s[0] += time.perf_counter() - t0
+        return out
+
+    phases = PhaseTimes()
+    apriori.run_level_loop(count_fn, db.shape[0], db.shape[1], cfg, obs=phases)
+    wall = time.perf_counter() - t_start
+    torch.cuda.synchronize()
+    kernel_ms = sum(e0.elapsed_time(e1) for e0, e1 in events)
+    log(f"[breakdown] mine wall {wall:.3f} s: place_db {place_s:.3f} s, candidate generation "
+        f"{phases.candidate_gen_s:.3f} s, counting passes {count_s[0]:.3f} s (K1 device time "
+        f"{kernel_ms:.2f} ms over {len(events)} launches), rest {wall - place_s - phases.candidate_gen_s - count_s[0]:.3f} s; "
+        f"device busy with K1 {kernel_ms / 1e3 / wall:.4f} of the wall [{card}]")
+
+
+def recommend_breakdown(rb, baskets, card):
+    """The recommend call again, with basket packing (host) and the K2
+    launches (device, CUDA events) timed inside its wall time."""
+    from repro_torch.serving import recommend as rec_mod
+
+    t0 = time.perf_counter()
+    packed = rec_mod.pack_baskets(baskets, rb.num_items)
+    pack_s = time.perf_counter() - t0
+    step = rec_mod.make_match_step()
+    events = []
+
+    def timed_step(*args):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = step(*args)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec_mod.recommend(rb, packed, top_k=10, batch_size=1024, device=rb.device, match_step=timed_step)
+    wall = time.perf_counter() - t0
+    kernel_ms = sum(e0.elapsed_time(e1) for e0, e1 in events)
+    log(f"[breakdown] recommend of {len(packed)} baskets: packing on the host {pack_s:.4f} s; "
+        f"recommend on packed baskets {wall:.4f} s wall, of which K2 device time {kernel_ms:.2f} ms "
+        f"over {len(events)} launches (device busy with K2 {kernel_ms / 1e3 / wall:.3f} of it) [{card}]")
+
+
+def expected_passes(res, num_items, cfg) -> int:
+    """Candidate passes the level loop counts for this result: one per
+    ``max_candidates_per_pass`` slice of each level's candidates."""
+    from repro_torch.core.candidates import generate_candidates
+
+    passes = math.ceil(num_items / cfg.max_candidates_per_pass)
+    for k in range(2, cfg.max_k + 1):
+        prev = res.levels.get(k - 1)
+        if prev is None or prev[0].shape[0] < k:
+            break
+        n_c = generate_candidates(prev[0]).shape[0]
+        if n_c == 0:
+            break
+        passes += math.ceil(n_c / cfg.max_candidates_per_pass)
+        if k not in res.levels:
+            break
+    return passes
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this smoke needs a CUDA card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    from repro_torch.core.apriori import AprioriConfig, mine, place_db
+    from repro_torch.core.candidates import generate_candidates
+    from repro_torch.core.itemsets import pack_bits
+    from repro_torch.data.synthetic import QuestConfig, gen_transactions
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ops
+    from repro_torch.serving.recommend import recommend, recommend_python
+    from repro_torch.serving.rulebook import compile_rulebook, place_rulebook
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain K2 matmul in full fp32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    log(card)
+    log(f"[device] {kind}; torch {torch.__version__} cuda {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"[build] kernels built in {time.perf_counter() - t0:.1f} s")
+
+    # ---- kernel phases: sweeps
+    k1_sweep(ops, dev)
+    k2_sweep(ops, dev)
+
+    # ---- the main path's data: FIMI T10I4D100K shape from the Quest generator
+    qcfg = QuestConfig(num_transactions=100_000, num_items=1_000, avg_len=10.0, seed=0)
+    t0 = time.perf_counter()
+    db = gen_transactions(qcfg)
+    log(f"[data] T10I4D100K shape {db.shape} generated on the host in {time.perf_counter() - t0:.1f} s")
+    cfg = AprioriConfig(min_support=0.002, max_k=4, representation="packed", packed_mode="and_cmp")
+    min_count = max(1, math.ceil(cfg.min_support * db.shape[0]))
+
+    # K1 at the level-2 shape the main path gives it
+    t_dev = place_db(db, cfg, dev)
+    freq1 = np.flatnonzero(db.sum(0, dtype=np.int64) >= min_count).astype(np.int32)[:, None]
+    k1 = k1_main_shape(ops, t_dev, generate_candidates(freq1), qcfg.num_items, dev, card)
+    del t_dev
+
+    # ---- main path, through the kernels; launch counts read around it
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = mine(db, cfg, device=dev)
+    mine_s = time.perf_counter() - t0
+    k1_launches = ops.launch_counts()["support_count_packed"]
+    t0 = time.perf_counter()
+    rb_host = compile_rulebook(res, min_confidence=0.4, score="confidence", num_items=qcfg.num_items)
+    compile_s = time.perf_counter() - t0
+    rb = place_rulebook(rb_host, dev)
+    baskets = db[:4096]
+    before = ops.launch_counts()["rule_match"]
+    t0 = time.perf_counter()
+    rec = recommend(rb, baskets, top_k=10, batch_size=1024, device=dev)
+    rec_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    k2_launches = launches["rule_match"] - before
+
+    passes = expected_passes(res, qcfg.num_items, cfg)
+    log(f"[main] mine {mine_s:.3f} s ({res.total_frequent} frequent, levels "
+        f"{ {k: int(v[0].shape[0]) for k, v in res.levels.items()} }, {passes} candidate passes); "
+        f"compile {compile_s:.3f} s ({rb.num_rules} rules, {rb.num_rows} rows); "
+        f"recommend {rec_s:.3f} s for {len(baskets)} baskets = {len(baskets) / rec_s:.0f} queries/s "
+        f"[{card}]")
+    log(f"[main] launches: {launches}")
+    if k1_launches != passes or k1_launches == 0:
+        raise AssertionError(f"K1 launched {k1_launches} times for {passes} candidate passes")
+    batches = -(-len(baskets) // 1024)
+    if k2_launches != batches:
+        raise AssertionError(f"K2 launched {k2_launches} times for {batches} batches")
+
+    # ---- the main path's results against the plain path and the oracle
+    ref_res = mine(db, AprioriConfig(min_support=0.002, max_k=4, representation="packed",
+                                     count_impl="ref"), device=dev)
+    if ref_res.as_dict() != res.as_dict():
+        raise AssertionError("mine through K1 differs from the plain mine on the card")
+    plain = recommend(rb, baskets, top_k=10, batch_size=1024, impl="ref", device=dev)
+    np.testing.assert_allclose(rec.scores, plain.scores, rtol=RTOL, atol=ATOL)
+    s = plain.scores
+    gaps = np.abs(np.diff(s, axis=1)) <= ATOL + RTOL * np.abs(s[:, 1:])
+    close = np.zeros_like(s, dtype=bool)
+    close[:, 1:] |= gaps
+    close[:, :-1] |= gaps
+    if not np.array_equal(rec.items[~close], plain.items[~close]):
+        raise AssertionError("recommend through K2 picks other items than the plain recommend")
+    if not (np.isfinite(rec.scores) | (rec.scores == -np.inf)).all():
+        raise AssertionError("recommend returned NaN scores")
+    py = recommend_python(rb_host, baskets[:64], top_k=10)
+    np.testing.assert_allclose(rec.scores[:64], py.scores, rtol=1e-4, atol=1e-5)
+    log(f"[main] mine dict-identical to the plain mine ({len(res.as_dict())} itemsets); recommend "
+        f"matches the plain recommend ({int(close.sum())} slots within tolerance of a tie) and "
+        "recommend_python on 64 baskets")
+
+    mine_breakdown(db, cfg, dev, card)
+    recommend_breakdown(rb, baskets, card)
+
+    # ---- K2 at the main path's batch shape
+    k2 = k2_main_shape(ops, rb, pack_bits(db[:1024]), dev, card)
+
+    kernels = [
+        dict(name="support_count_packed", route="cuda",
+             source="src/repro_torch/kernels/csrc/support_count_packed.cu",
+             replaces="src/repro/kernels/support_count_packed.py:106", launches=k1_launches,
+             max_abs_err=k1["and_cmp"]["max_abs_err"], ms=k1["and_cmp"]["ms"],
+             plain_ms=k1["and_cmp"]["plain_ms"], bound_ms=k1["and_cmp"]["bound_ms"],
+             bound_by=k1["and_cmp"]["bound_by"], library_ms=None),
+        dict(name="rule_match", route="cuda", source="src/repro_torch/kernels/csrc/rule_match.cu",
+             replaces="src/repro/kernels/rule_match.py:86", launches=k2_launches,
+             max_abs_err=k2["max_abs_err"], ms=k2["ms"], plain_ms=k2["plain_ms"],
+             bound_ms=k2["bound_ms"], bound_by=k2["bound_by"], library_ms=None),
+    ]
+    log(f"[k1] popcount mode at the same shape: {json.dumps(k1['popcount'])} [{card}]")
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

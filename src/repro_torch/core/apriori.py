@@ -1,0 +1,276 @@
+"""Level-wise Apriori on one device — the paper's algorithm (§3.3) in PyTorch.
+
+Per level k:
+  driver (host):  candidate generation from F_{k-1}   (core.candidates)
+  Map (device):   support counting of every candidate over the whole DB
+                  (kernels.ops.support_count_packed — the K1 CUDA kernel)
+  driver (host):  prune by min support -> F_k
+
+The transaction store is packed uint32 bitsets (N, ceil(I/32)), held on
+the device as an int32 view, placed ONCE (``place_db``).  Candidates pad
+with zero rows and ``|c| = -1`` lengths (never match).  A level's candidate
+passes run as a depth-2 pipeline: the host places pass p+1 (a pinned-host,
+non-blocking copy) and launches its count before it waits on pass p's
+``.cpu()``.  Counting is exact (int32).
+
+Only ``representation="packed"`` is ported; the dense representation needs
+the K3 kernel (ROADMAP, TPU kernels to port, K3).  A mesh (2-D data x model
+decomposition) is ROADMAP item 11; this module is the ``mesh=None`` path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core import candidates as cand_mod
+from repro_torch.core import itemsets as enc
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kops
+
+COUNT_IMPLS = ("auto", "kernel", "ref")
+
+
+@dataclasses.dataclass(frozen=True)
+class AprioriConfig:
+    min_support: float = 0.01          # fraction of |DB|; min_count = ceil(frac * N)
+    max_k: int = 8                     # maximum itemset size to mine
+    count_impl: str = "auto"           # auto (by device) | kernel (CUDA only) | ref (plain)
+    representation: str = "dense"      # dense {0,1} int8 | packed uint32 bitsets
+    data_axes: tuple = ("data",)       # mesh axes sharding the transaction rows
+    model_axis: str | None = None      # mesh axis sharding the candidate rows
+    candidate_pad: int = 256           # K padded to a multiple (pass bucket)
+    max_candidates_per_pass: int = 1 << 16  # split huge candidate sets across passes
+    use_naive_paper_map: bool = False  # paper's 'all subsets' enumeration (small I only)
+    operand_dtype: str = "bf16"        # dense kernel operand mode (bf16 / int8)
+    packed_mode: str = "and_cmp"       # packed kernel containment mode (| popcount)
+
+
+@dataclasses.dataclass
+class AprioriResult:
+    """k -> (itemsets (F_k, k) int32, supports (F_k,) int64).
+
+    Built by :func:`mine`, or directly from another miner's ``levels`` dict
+    of numpy arrays (e.g. the JAX package's result)."""
+
+    levels: dict
+    num_transactions: int
+    min_count: int
+
+    def frequent(self, k: int) -> np.ndarray:
+        return self.levels[k][0] if k in self.levels else np.zeros((0, k), np.int32)
+
+    def support(self, itemset) -> int:
+        k = len(itemset)
+        if k not in self.levels:
+            return 0
+        sets, sup = self.levels[k]
+        hit = np.all(sets == np.asarray(sorted(itemset), np.int32)[None, :], axis=1)
+        idx = np.flatnonzero(hit)
+        return int(sup[idx[0]]) if idx.size else 0
+
+    def as_dict(self) -> dict:
+        out = {}
+        for k, (sets, sup) in self.levels.items():
+            for row, s in zip(sets, sup):
+                out[tuple(int(x) for x in row)] = int(s)
+        return out
+
+    @property
+    def total_frequent(self) -> int:
+        return sum(v[0].shape[0] for v in self.levels.values())
+
+
+def _pad_bucket(k: int, quantum: int) -> int:
+    """Pad K to a power-of-two-ish bucket (few distinct pass shapes)."""
+    k = max(k, 1)
+    bucket = quantum
+    while bucket < k:
+        bucket *= 2
+    return bucket
+
+
+def _check_cfg(cfg: AprioriConfig) -> None:
+    if cfg.representation == "dense":
+        raise NotImplementedError(
+            "representation='dense' needs the dense support-count kernel, which is "
+            "not ported yet (ROADMAP.md, TPU kernels to port, K3); use 'packed'"
+        )
+    if cfg.representation != "packed":
+        raise ValueError(f"representation must be dense|packed, got {cfg.representation!r}")
+    if cfg.count_impl not in COUNT_IMPLS:
+        raise ValueError(f"count_impl must be one of {COUNT_IMPLS}, got {cfg.count_impl!r}")
+
+
+def make_count_step(cfg: AprioriConfig) -> Callable:
+    """The support-count step ``fn(T (N,W) int32, C (Kp,W) int32, lengths
+    (Kp,) int32) -> counts (Kp,) int32`` on the operands' device."""
+    _check_cfg(cfg)
+
+    def count_step(t, c, ln):
+        return kops.support_count_packed(t, c, ln, impl=cfg.count_impl, mode=cfg.packed_mode)
+
+    return count_step
+
+
+def place_db(t_np: np.ndarray, cfg: AprioriConfig, device="cuda") -> torch.Tensor:
+    """Pack the dense {0,1} DB to bitsets and place it on ``device`` ONCE
+    for the whole mine: an (N, W) int32 view of the uint32 words."""
+    dev = resolve_device(device)
+    _check_cfg(cfg)
+    words = enc.pack_bits(np.asarray(t_np, dtype=np.int8)).view(np.int32)
+    return torch.from_numpy(words).to(dev)
+
+
+def _candidate_quantum(cfg: AprioriConfig) -> int:
+    """Pad quantum for the candidate axis (one device: no model shards)."""
+    return max(cfg.candidate_pad, 1)
+
+
+def _place_candidates(chunk: np.ndarray, kp: int, num_items: int, cfg: AprioriConfig, device):
+    """Encode one candidate pass to device tensors: (Kp, W) int32 words
+    zero-padded to the bucket, plus lengths with ``|c| = -1`` padding.  On
+    CUDA the host buffers are pinned and the copies are non-blocking, so the
+    caller can launch the count before earlier passes finish."""
+    dev = torch.device(device)
+    c_host = np.zeros((kp, enc.packed_words(num_items)), dtype=np.uint32)
+    c_host[: chunk.shape[0]] = enc.itemsets_to_packed(chunk, num_items)
+    lengths = np.full(kp, -1, dtype=np.int32)
+    lengths[: chunk.shape[0]] = chunk.shape[1]
+    c_t = torch.from_numpy(c_host.view(np.int32))
+    len_t = torch.from_numpy(lengths)
+    if dev.type == "cuda":
+        return (c_t.pin_memory().to(dev, non_blocking=True),
+                len_t.pin_memory().to(dev, non_blocking=True))
+    return c_t, len_t
+
+
+def _count_level(count_step, t_dev, cand_sets: np.ndarray, num_items: int, cfg: AprioriConfig):
+    """Count supports for one level's candidates, in padded passes.
+
+    Depth-2 pipeline: pass p+1 is placed and its count launched before the
+    host blocks on pass p's ``.cpu()``, so at most two passes of candidate
+    tensors are live on the device (the bound ``max_candidates_per_pass``
+    exists to give).
+    """
+    k_total = cand_sets.shape[0]
+    quantum = _candidate_quantum(cfg)
+    counts = np.zeros(k_total, dtype=np.int64)
+    pending = []
+
+    def _drain(limit):
+        while len(pending) > limit:
+            start, m, out = pending.pop(0)
+            counts[start : start + m] = out.cpu().numpy()[:m]
+
+    for start in range(0, k_total, cfg.max_candidates_per_pass):
+        chunk = cand_sets[start : start + cfg.max_candidates_per_pass]
+        kp = _pad_bucket(chunk.shape[0], quantum)
+        c_dev, len_dev = _place_candidates(chunk, kp, num_items, cfg, t_dev.device)
+        pending.append((start, chunk.shape[0], count_step(t_dev, c_dev, len_dev)))
+        _drain(limit=1)   # sync pass p only once pass p+1 is in flight
+    _drain(limit=0)
+    return counts
+
+
+def run_level_loop(
+    count_fn: Callable[[np.ndarray, int], np.ndarray],
+    n: int,
+    num_items: int,
+    cfg: AprioriConfig,
+    checkpoint_cb: Callable | None = None,
+    resume_state: dict | None = None,
+    obs=None,
+) -> AprioriResult:
+    """The driver's level loop, abstracted over HOW candidates are counted.
+
+    ``count_fn(cand_sets (K, k) int32, level_k) -> supports (K,) int``.
+    Candidate generation, min-support pruning, checkpointing and
+    termination live here, so every driver that counts differently shares
+    them.  Given the same DB and config, the candidates of level k are a
+    pure function of F_{k-1} (``generate_candidates`` is canonical), which
+    is what lets a resumed mine regenerate them.
+
+    ``obs`` (optional) records per-level counters and the candidate-
+    generation phase time; observation only.
+    """
+    min_count = max(1, math.ceil(cfg.min_support * n))
+    levels = dict(resume_state["levels"]) if resume_state else {}
+    start_k = resume_state["next_k"] if resume_state else 1
+
+    if start_k <= 1:
+        # level 1: supports of singletons — the same count path
+        t_gen0 = time.perf_counter()
+        singles = enc.singleton_itemsets(num_items)
+        if obs is not None:
+            obs.on_level_start(1, singles.shape[0])
+            obs.add_phase("candidate_gen", t_gen0, time.perf_counter())
+        sup1 = count_fn(singles, 1)
+        keep = sup1 >= min_count
+        levels[1] = (singles[keep], sup1[keep])
+        if obs is not None:
+            obs.on_level_end(1, int(keep.sum()))
+        if checkpoint_cb:
+            checkpoint_cb(1, levels)
+        start_k = 2
+
+    for k in range(start_k, cfg.max_k + 1):
+        prev_sets = levels.get(k - 1, (np.zeros((0, k - 1), np.int32),))[0]
+        if prev_sets.shape[0] < k:   # cannot form a k-itemset
+            break
+        t_gen0 = time.perf_counter()
+        if cfg.use_naive_paper_map:
+            # paper §3.3: enumerate every k-subset of the (frequent) item universe
+            freq_items = levels[1][0].ravel()
+            combos = cand_mod.all_k_subsets_of_universe(freq_items.size, k)
+            cands = freq_items[combos]
+        else:
+            cands = cand_mod.generate_candidates(prev_sets)
+        if cands.shape[0] == 0:
+            break
+        if obs is not None:
+            obs.on_level_start(k, cands.shape[0])
+            obs.add_phase("candidate_gen", t_gen0, time.perf_counter())
+        sup = count_fn(cands, k)
+        keep = sup >= min_count
+        if obs is not None:
+            obs.on_level_end(k, int(keep.sum()))
+        if not keep.any():
+            break
+        levels[k] = (cands[keep], sup[keep])
+        if checkpoint_cb:
+            checkpoint_cb(k, levels)
+
+    return AprioriResult(levels=levels, num_transactions=n, min_count=min_count)
+
+
+def mine(
+    transactions_dense,
+    cfg: AprioriConfig = AprioriConfig(),
+    *,
+    device="cuda",
+    checkpoint_cb: Callable | None = None,
+    resume_state: dict | None = None,
+) -> AprioriResult:
+    """Level-wise Apriori over a dense {0,1} transaction matrix on ``device``.
+
+    checkpoint_cb(level_k, levels_dict): called after each completed level;
+    ``resume_state`` = {'levels': ..., 'next_k': ...} restarts from one.
+    """
+    dev = resolve_device(device)
+    _check_cfg(cfg)
+    t_np = np.asarray(transactions_dense, dtype=np.int8)
+    n, num_items = t_np.shape
+
+    t_dev = place_db(t_np, cfg, dev)
+    count_step = make_count_step(cfg)
+
+    def count_fn(cand_sets, level_k):
+        return _count_level(count_step, t_dev, cand_sets, num_items, cfg)
+
+    return run_level_loop(count_fn, n, num_items, cfg, checkpoint_cb, resume_state)

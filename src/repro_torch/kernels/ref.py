@@ -1,0 +1,110 @@
+"""Plain PyTorch versions of the two kernels, on any device.
+
+Packed words are ``int32`` views of the uint32 bitsets: ``&`` and ``==`` are
+bit-identical on the view, and every right shift is followed by ``& 1``
+because an int32 shift sign-extends.  The CPU tests hold these against the
+JAX package's oracles; on the card they are what each CUDA kernel is
+compared with.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# elements of one (rows, candidates, words) intermediate in the blocked forms
+_BLOCK_ELEMS = 1 << 25
+
+
+def support_count_packed_ref(t_packed, c_packed, lengths=None, block_k: int = 256):
+    """Exact support counts over packed bitsets.
+
+    t_packed: (N, W) int32, c_packed: (K, W) int32 word views.
+    lengths:  optional (K,) int32 itemset sizes; rows with ``len = -1`` are
+              padding and never match.  Without lengths every row counts
+              as a real candidate (the JAX oracle pads its last K block with
+              all-ones rows that are sliced off; blocks here are slices, so
+              no padding row exists).
+    returns:  (K,) int32 — #{n : ∀w t[n,w] & c[k,w] == c[k,w]}.
+    Blocked over K and N so the (bn, bk, W) intermediate stays bounded.
+    """
+    n, w = t_packed.shape
+    k = c_packed.shape[0]
+    counts = torch.zeros(k, dtype=torch.int32, device=c_packed.device)
+    block_n = max(1, _BLOCK_ELEMS // max(1, block_k * w))
+    for k0 in range(0, k, block_k):
+        c_blk = c_packed[k0 : k0 + block_k]
+        for n0 in range(0, n, block_n):
+            t_blk = t_packed[n0 : n0 + block_n]
+            inter = t_blk[:, None, :] & c_blk[None, :, :]
+            contained = (inter == c_blk[None, :, :]).all(dim=-1)
+            counts[k0 : k0 + block_k] += contained.sum(dim=0, dtype=torch.int32)
+    if lengths is not None:
+        counts = torch.where(lengths.to(torch.int32) >= 0, counts, torch.zeros_like(counts))
+    return counts
+
+
+def support_count_packed_popcount_ref(t_packed, c_packed, lengths, block_k: int = 256):
+    """Popcount-mode twin: Σ_w popcount(t & c) == len (bit-for-bit the dense
+    semantics).  Agrees with :func:`support_count_packed_ref` whenever
+    ``lengths`` are the true popcounts or -1."""
+    n, w = t_packed.shape
+    k = c_packed.shape[0]
+    counts = torch.zeros(k, dtype=torch.int32, device=c_packed.device)
+    block_n = max(1, _BLOCK_ELEMS // max(1, block_k * w))
+    for k0 in range(0, k, block_k):
+        c_blk = c_packed[k0 : k0 + block_k]
+        ln = lengths[k0 : k0 + block_k].to(torch.int32)
+        for n0 in range(0, n, block_n):
+            inter = t_packed[n0 : n0 + block_n][:, None, :] & c_blk[None, :, :]
+            pop = popcount32(inter).sum(dim=-1, dtype=torch.int32)
+            counts[k0 : k0 + block_k] += (pop == ln[None, :]).sum(dim=0, dtype=torch.int32)
+    return counts
+
+
+def popcount32(x):
+    """Per-element popcount of int32 word views (SWAR; torch has no popcount
+    op).  Each mask clears the bits an arithmetic shift drags in from the
+    sign, so the result is the popcount of the uint32 word."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    x = x + (x >> 8)
+    x = x + (x >> 16)
+    return x & 0x3F
+
+
+def unpack_bits_ref(packed, num_items: int):
+    """Packed int32 word view (R, W) -> dense {0,1} float32 (R, num_items),
+    little-endian bits per word (the torch twin of ``core.itemsets.unpack_bits``)."""
+    r, w = packed.shape
+    shifts = torch.arange(32, dtype=torch.int32, device=packed.device)
+    bits = (packed[:, :, None] >> shifts) & 1
+    return bits.reshape(r, w * 32)[:, :num_items].to(torch.float32)
+
+
+def rule_match_ref(b_packed, a_packed, lengths, c_packed, scores):
+    """Per-item rule-evidence scores.
+
+    b_packed: (B, W) int32 basket words; a_packed / c_packed: (R, W) int32
+    antecedent / consequent words; lengths: (R,) int32 (-1 = padding row);
+    scores: (R,) float32.
+    returns:  (B, 32·W) float32 — out[b, i] = Σ_r [a_r ⊆ b] · [len_r ≥ 0] · s_r · c_r[i]
+    """
+    contains = ((b_packed[:, None, :] & a_packed[None, :, :]) == a_packed[None, :, :]).all(dim=-1)
+    matched = contains & (lengths.to(torch.int32) >= 0)[None, :]
+    weights = matched.to(torch.float32) * scores.to(torch.float32)[None, :]
+    cons_dense = unpack_bits_ref(c_packed, 32 * c_packed.shape[1])
+    return weights @ cons_dense
+
+
+def rule_match_blocked(b_packed, a_packed, lengths, c_packed, scores, block_n: int = 512):
+    """:func:`rule_match_ref` over basket blocks, so the (bn, R, W)
+    containment intermediate stays bounded for large batches.  Rows are
+    independent, so the result equals the unblocked form."""
+    n, w = b_packed.shape
+    out = torch.empty((n, 32 * w), dtype=torch.float32, device=b_packed.device)
+    for n0 in range(0, n, block_n):
+        out[n0 : n0 + block_n] = rule_match_ref(
+            b_packed[n0 : n0 + block_n], a_packed, lengths, c_packed, scores
+        )
+    return out

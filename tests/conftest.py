@@ -63,3 +63,7 @@ def brute_force_frequent(dense: np.ndarray, min_count: int, max_k: int) -> dict:
         out.update(level)
         prev = level
     return out
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "gpu: needs a CUDA card and nvcc; skips without them")

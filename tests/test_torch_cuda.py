@@ -1,0 +1,123 @@
+"""PyTorch port on the card: each CUDA kernel against its plain version at
+the sweep shapes, and the mine -> compile -> recommend chain through the
+kernels.  Marked ``gpu``; every test skips without a card (decided in the
+fixture, so every worker collects the same tests).  Run on the card with
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.itemsets import itemsets_to_packed, pack_bits, packed_words  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+# (N, I, K) of the JAX package's tests/test_kernels.py sweep, plus a W > 32
+# case that exercises the kernel's word-chunk loop
+SHAPES = [(8, 16, 4), (100, 64, 33), (256, 128, 128), (300, 130, 257), (512, 512, 300),
+          (200, 1100, 70)]
+# (B, I, R) of tests/test_rule_match.py
+RULE_SHAPES = [(8, 16, 4), (100, 37, 33), (64, 96, 300), (33, 130, 257), (16, 31, 128)]
+RTOL, ATOL = 1e-5, 1e-6
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _words(x, dev):
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.uint32).view(np.int32)).to(dev)
+
+
+def _count_problem(shape, seed):
+    n, i, k = shape
+    rng = np.random.default_rng(seed)
+    t = (rng.random((n, i)) < 0.3).astype(np.int8)
+    sizes = rng.integers(1, min(6, i) + 1, size=k)
+    c = np.zeros((k, i), np.int8)
+    for row, s in enumerate(sizes):
+        c[row, rng.choice(i, size=s, replace=False)] = 1
+    lengths = c.sum(1).astype(np.int32)
+    lengths[rng.random(k) < 0.1] = -1
+    return pack_bits(t), pack_bits(c), lengths
+
+
+def _rule_problem(shape, seed):
+    b, i, r = shape
+    rng = np.random.default_rng(seed)
+    baskets = pack_bits((rng.random((b, i)) < 0.3).astype(np.int8))
+    ante = np.stack([itemsets_to_packed(np.sort(rng.choice(i, rng.integers(1, min(4, i) + 1), replace=False))[None], i)[0]
+                     for _ in range(r)])
+    cons = np.stack([itemsets_to_packed(np.sort(rng.choice(i, rng.integers(1, min(3, i) + 1), replace=False))[None], i)[0]
+                     for _ in range(r)])
+    lengths = np.array([sum(bin(int(w)).count("1") for w in row) for row in ante], np.int32)
+    scores = rng.random(r).astype(np.float32)
+    pad = rng.random(r) < 0.2
+    ante[pad], cons[pad], lengths[pad], scores[pad] = 0, 0, -1, 0
+    return baskets, ante, lengths, cons, scores
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("mode", ["and_cmp", "popcount"])
+def test_support_count_kernel_exact(cuda, shape, mode):
+    tp, cp, lengths = _count_problem(shape, seed=sum(shape))
+    t, c, ln = _words(tp, cuda), _words(cp, cuda), torch.from_numpy(lengths).to(cuda)
+    before = ops.launch_counts()["support_count_packed"]
+    got = ops.support_count_packed(t, c, ln, mode=mode)
+    want = ops.support_count_packed(t, c, ln, mode=mode, impl="ref")
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["support_count_packed"] == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), ops.support_count_packed(t.cpu(), c.cpu(), ln.cpu(), mode=mode))
+
+
+@pytest.mark.parametrize("shape", RULE_SHAPES)
+def test_rule_match_kernel_close_and_deterministic(cuda, shape):
+    args = [torch.from_numpy(x).to(cuda) if x.dtype != np.uint32 else _words(x, cuda)
+            for x in _rule_problem(shape, seed=sum(shape))]
+    i = shape[1]
+    got = ops.rule_match(*args, num_items=i)
+    again = ops.rule_match(*args, num_items=i)
+    want = ops.rule_match(*args, num_items=i, impl="ref")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, again)
+
+
+def test_rule_match_padding_inert(cuda):
+    baskets, ante, lengths, cons, scores = _rule_problem((20, 64, 40), seed=9)
+    w = packed_words(64)
+    z = torch.zeros((12, w), dtype=torch.int32, device=cuda)
+    out = ops.rule_match(_words(baskets, cuda), z, torch.full((12,), -1, dtype=torch.int32, device=cuda),
+                         z, torch.zeros(12, device=cuda), num_items=64)
+    assert torch.count_nonzero(out) == 0
+    out = ops.rule_match(torch.zeros((8, w), dtype=torch.int32, device=cuda), _words(ante, cuda),
+                         torch.from_numpy(lengths).to(cuda), _words(cons, cuda),
+                         torch.from_numpy(scores).to(cuda), num_items=64)
+    assert torch.count_nonzero(out) == 0
+
+
+def test_chain_through_kernels(cuda):
+    from repro_torch.core.apriori import AprioriConfig, mine
+    from repro_torch.data.synthetic import QuestConfig, gen_transactions
+    from repro_torch.serving.recommend import recommend, recommend_python
+    from repro_torch.serving.rulebook import compile_rulebook, place_rulebook
+
+    db = gen_transactions(QuestConfig(num_transactions=2000, num_items=96, avg_len=8, seed=5))
+    cfg = AprioriConfig(min_support=0.03, max_k=4, representation="packed")
+    res = mine(db, cfg)
+    cpu = mine(db, cfg, device="cpu")
+    assert res.as_dict() == cpu.as_dict()
+    rb = place_rulebook(compile_rulebook(res, min_confidence=0.4, num_items=96))
+    before = ops.launch_counts()["rule_match"]
+    out = recommend(rb, db[:300], top_k=5, batch_size=128)
+    assert ops.launch_counts()["rule_match"] == before + 3
+    want = recommend_python(rb, db[:300], top_k=5)
+    np.testing.assert_allclose(out.scores, want.scores, rtol=1e-4, atol=1e-5)
