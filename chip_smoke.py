@@ -3,15 +3,24 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, holds each
-against its plain PyTorch version on the card (K1 support counting exactly,
+against its plain PyTorch version on the card (K1 packed and K3 dense
+support counting exactly, K3 in both operand dtypes and against K1's counts;
 K2 rule matching within rtol=1e-5, atol=1e-6 and bit-identical run to run),
-times both, then drives the main path once through the port's entry points
-at the FIMI T10I4D100K shape: ``mine`` -> ``compile_rulebook`` ->
-``place_rulebook`` -> ``recommend``, checking the results against the plain
-path and the Python oracle and that every kernel was launched.  Any failed
-check raises, and the script exits non-zero.  The last line of standard
-output is ``{"ok": true, "device": {...}}``; the line before it lists the
-kernels with their launches, errors and times.
+times them, then drives three paths through the port's entry points at the
+FIMI T10I4D100K shape, each with the launch counts set to 0 just before it
+and read just after:
+
+* ``[main]``: packed ``mine`` -> ``compile_rulebook`` -> ``place_rulebook``
+  -> ``recommend`` (K1, K2), checked against the plain path and the Python
+  oracle;
+* ``[main-dense]``: ``mine`` at the default dense bf16 config (K3),
+  dict-identical to the packed mine and to the plain dense mine;
+* ``[son]``: ``mine_son`` over 8 partitions, dense (K3 in both phases),
+  dict-identical to the level-wise mine.
+
+Any failed check raises, and the script exits non-zero.  The last line of
+standard output is ``{"ok": true, "device": {...}}``; the line before it
+lists the kernels with their launches, errors and times.
 """
 
 from __future__ import annotations
@@ -35,6 +44,11 @@ SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 INT32_OP_PER_S = 132 * 64 * 1.98e9
+# Dense tensor-core rates of the same data sheet (no sparsity): bf16 with
+# fp32 accumulation, and int8.
+BF16_TC_FLOP_PER_S = 989e12
+INT8_TC_OP_PER_S = 1979e12
+TC_RATES = {"bf16": BF16_TC_FLOP_PER_S, "int8": INT8_TC_OP_PER_S}
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -173,7 +187,7 @@ def k1_main_shape(ops, t_dev, cands, num_items, dev, card):
             f"bound {bound_ms:.4f} ms ({needed_tests:.3e} word tests on candidate words that hold "
             f"a bit, at {INT32_OP_PER_S:.3e} int32 op/s); dense-count bound "
             f"{dense_tests / INT32_OP_PER_S * 1e3:.3f} ms ({dense_tests:.3e} = N*Kp*W word tests) [{card}]")
-    return out
+    return out, got   # the counts, the same in both modes
 
 
 def k2_sweep(ops, dev):
@@ -246,6 +260,99 @@ def k2_main_shape(ops, rb, b_words, dev, card):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
 
 
+def dense_problem(n, i, k, seed):
+    """Random dense (transactions, candidates, lengths) with every 7th row
+    zero, some len = -1 padding rows that still hold bits, and, where K
+    reaches 256, a whole 128-candidate tile of them."""
+    rng = np.random.default_rng(seed)
+    t = (rng.random((n, i)) < 0.3).astype(np.int8)
+    t[::7] = 0
+    c = np.zeros((k, i), np.int8)
+    for row in range(k):
+        c[row, rng.choice(i, size=rng.integers(1, min(6, i) + 1), replace=False)] = 1
+    lengths = c.sum(1).astype(np.int32)
+    lengths[rng.random(k) < 0.1] = -1
+    lengths[128:256] = -1
+    return t, c, lengths
+
+
+def k3_sweep(ops, dev):
+    """The shapes of tests/test_kernels.py plus one with I > 1,024, both
+    operand dtypes, the item axis padded with zero columns to the kernel's
+    width as the dense placement pads it."""
+    from repro_torch.kernels import support_count as k3
+
+    shapes = [(8, 16, 4), (100, 64, 33), (256, 128, 128), (300, 130, 257), (512, 512, 300),
+              (200, 1100, 70)]
+    for operand_dtype, (_, dt) in k3.DTYPES.items():
+        for n, i, k in shapes:
+            t, c, ln = dense_problem(n, i, k, seed=n + i + k)
+            pad = ((0, 0), (0, k3.item_width(i) - i))
+            tt = torch.from_numpy(np.pad(t, pad)).to(dev).to(dt)
+            tc = torch.from_numpy(np.pad(c, pad)).to(dev).to(dt)
+            l_ = torch.from_numpy(ln).to(dev)
+            got = ops.support_count(tt, tc, l_, operand_dtype=operand_dtype, impl="kernel")
+            want = ops.support_count(tt, tc, l_, impl="ref")
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"K3 {operand_dtype} {(n, i, k)}: counts differ from the plain version")
+    log(f"[k3] sweep: {2 * len(shapes)} cases exactly equal to the plain version (bf16 and int8, "
+        "zero rows, len = -1 rows, an all-padding candidate tile)")
+
+
+def k3_main_shape(ops, db, cands, k1_counts, dev, card):
+    """K3 at the main path's level-2 pass: the dense DB (placed by
+    ``place_db``) against the level-2 candidates (placed by the main path's
+    ``_place_candidates``), both operand dtypes: exact against the plain
+    version and K1's counts, timed beside its bound and the bare product."""
+    from repro_torch.core import apriori
+
+    num_items = db.shape[1]
+    kp = apriori._pad_bucket(cands.shape[0], apriori._candidate_quantum(apriori.AprioriConfig()))
+    out = {}
+    for operand_dtype in ("bf16", "int8"):
+        cfg = apriori.AprioriConfig(operand_dtype=operand_dtype)
+        t = apriori.place_db(db, cfg, dev)
+        c, l_ = apriori._place_candidates(cands, kp, num_items, cfg, dev)
+        got = ops.support_count(t, c, l_, operand_dtype=operand_dtype, impl="kernel")
+        want = ops.support_count(t, c, l_, impl="ref")
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K3 {operand_dtype} at the main shape: counts differ from the plain version")
+        if not torch.equal(got, k1_counts):
+            raise AssertionError(f"K3 {operand_dtype} at the main shape: counts differ from K1's")
+        ms, plain_ms = alternate(
+            lambda: ops.support_count(t, c, l_, impl="ref"),
+            lambda: ops.support_count(t, c, l_, operand_dtype=operand_dtype, impl="kernel"),
+            kernel_reps=5,
+        )
+        n, ip = t.shape
+        live = int((l_ >= 0).sum().item())
+        # what this pass needs: the real candidates against the real items;
+        # padding rows (len = -1) count 0 by definition, zero columns add 0
+        op_count = 2 * n * live * num_items
+        dense_ops = 2 * n * kp * ip
+        byte_count = t.element_size() * (n + live) * num_items + 4 * (kp + kp)
+        bound_ms, bound_by = bound(byte_count, op_count / TC_RATES[operand_dtype] * 1e3)
+        out[operand_dtype] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                  max_abs_err=float((got - want).abs().max().item()))
+        if operand_dtype == "bf16":
+            prod = lambda: torch.matmul(t, c.T)  # noqa: E731  (the product alone; never on the port's path)
+            prod()
+            torch.cuda.synchronize()
+            out["bf16"]["gemm_ms"] = cuda_ms(prod, 3)
+        extra = f", bf16 torch.matmul of the same operands {out['bf16']['gemm_ms']:.3f} ms" \
+            if operand_dtype == "bf16" else ""
+        log(f"[k3] {operand_dtype} N={n} Kp={kp} Ip={ip}: exact, equal to K1's counts; kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.1f} ms{extra}; bound {bound_ms:.4f} ms ({bound_by}: {op_count:.3e} = "
+            f"2*N*K*I operations for the {live} real candidates and {num_items} items at "
+            f"{TC_RATES[operand_dtype]:.3e}/s, {byte_count:.3e} B) = {op_count / (ms * 1e-3) / 1e12:.1f} "
+            f"T op/s achieved; dense-count bound {dense_ops / TC_RATES[operand_dtype] * 1e3:.3f} ms "
+            f"({dense_ops:.3e} = 2*N*Kp*Ip) [{card}]")
+        del t, c
+    return out
+
+
 class PhaseTimes:
     """Collects the level loop's candidate-generation times (its ``obs`` hook)."""
 
@@ -262,10 +369,11 @@ class PhaseTimes:
         self.candidate_gen_s += t1 - t0
 
 
-def mine_breakdown(db, cfg, dev, card):
+def mine_breakdown(db, cfg, dev, card, kernel):
     """The mine again, through the same functions, with its phases timed:
     DB placement, candidate generation, counting (host wall of the passes,
-    and device time of the K1 launches by CUDA events)."""
+    of which candidate placement on the host, and device time of the
+    ``kernel`` launches by CUDA events)."""
     from repro_torch.core import apriori
 
     torch.cuda.synchronize()
@@ -285,6 +393,14 @@ def mine_breakdown(db, cfg, dev, card):
         return out
 
     count_s = [0.0]
+    place_c_s = [0.0]
+    place_candidates = apriori._place_candidates
+
+    def timed_place(*args):
+        t0 = time.perf_counter()
+        out = place_candidates(*args)
+        place_c_s[0] += time.perf_counter() - t0
+        return out
 
     def count_fn(cands, k):
         t0 = time.perf_counter()
@@ -293,14 +409,19 @@ def mine_breakdown(db, cfg, dev, card):
         return out
 
     phases = PhaseTimes()
-    apriori.run_level_loop(count_fn, db.shape[0], db.shape[1], cfg, obs=phases)
+    apriori._place_candidates = timed_place
+    try:
+        apriori.run_level_loop(count_fn, db.shape[0], db.shape[1], cfg, obs=phases)
+    finally:
+        apriori._place_candidates = place_candidates
     wall = time.perf_counter() - t_start
     torch.cuda.synchronize()
     kernel_ms = sum(e0.elapsed_time(e1) for e0, e1 in events)
-    log(f"[breakdown] mine wall {wall:.3f} s: place_db {place_s:.3f} s, candidate generation "
-        f"{phases.candidate_gen_s:.3f} s, counting passes {count_s[0]:.3f} s (K1 device time "
-        f"{kernel_ms:.2f} ms over {len(events)} launches), rest {wall - place_s - phases.candidate_gen_s - count_s[0]:.3f} s; "
-        f"device busy with K1 {kernel_ms / 1e3 / wall:.4f} of the wall [{card}]")
+    log(f"[breakdown] {cfg.representation} mine wall {wall:.3f} s: place_db {place_s:.3f} s, candidate "
+        f"generation {phases.candidate_gen_s:.3f} s, counting passes {count_s[0]:.3f} s (of which "
+        f"candidate placement on the host {place_c_s[0]:.3f} s; {kernel} device time {kernel_ms:.2f} ms "
+        f"over {len(events)} launches), rest {wall - place_s - phases.candidate_gen_s - count_s[0]:.3f} s; "
+        f"device busy with {kernel} {kernel_ms / 1e3 / wall:.4f} of the wall [{card}]")
 
 
 def recommend_breakdown(rb, baskets, card):
@@ -360,13 +481,16 @@ def main() -> int:
     from repro_torch.core.apriori import AprioriConfig, mine, place_db
     from repro_torch.core.candidates import generate_candidates
     from repro_torch.core.itemsets import pack_bits
+    from repro_torch.core import son as son_mod
     from repro_torch.data.synthetic import QuestConfig, gen_transactions
     from repro_torch.kernels import _build
     from repro_torch.kernels import ops
     from repro_torch.serving.recommend import recommend, recommend_python
     from repro_torch.serving.rulebook import compile_rulebook, place_rulebook
 
-    torch.backends.cuda.matmul.allow_tf32 = False   # the plain K2 matmul in full fp32
+    # The plain K2 and K3 matmuls in full fp32.  TF32 would round no {0,1}
+    # operand of K3's plain version, but it would round K2's scores.
+    torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = card_line()
@@ -381,6 +505,7 @@ def main() -> int:
     # ---- kernel phases: sweeps
     k1_sweep(ops, dev)
     k2_sweep(ops, dev)
+    k3_sweep(ops, dev)
 
     # ---- the main path's data: FIMI T10I4D100K shape from the Quest generator
     qcfg = QuestConfig(num_transactions=100_000, num_items=1_000, avg_len=10.0, seed=0)
@@ -390,11 +515,13 @@ def main() -> int:
     cfg = AprioriConfig(min_support=0.002, max_k=4, representation="packed", packed_mode="and_cmp")
     min_count = max(1, math.ceil(cfg.min_support * db.shape[0]))
 
-    # K1 at the level-2 shape the main path gives it
+    # K1 and K3 at the level-2 shape the main path gives them
     t_dev = place_db(db, cfg, dev)
     freq1 = np.flatnonzero(db.sum(0, dtype=np.int64) >= min_count).astype(np.int32)[:, None]
-    k1 = k1_main_shape(ops, t_dev, generate_candidates(freq1), qcfg.num_items, dev, card)
+    cands2 = generate_candidates(freq1)
+    k1, k1_counts = k1_main_shape(ops, t_dev, cands2, qcfg.num_items, dev, card)
     del t_dev
+    k3 = k3_main_shape(ops, db, cands2, k1_counts, dev, card)
 
     # ---- main path, through the kernels; launch counts read around it
     ops.reset_launch_counts()
@@ -449,8 +576,61 @@ def main() -> int:
         f"matches the plain recommend ({int(close.sum())} slots within tolerance of a tie) and "
         "recommend_python on 64 baskets")
 
-    mine_breakdown(db, cfg, dev, card)
+    mine_breakdown(db, cfg, dev, card, "K1")
     recommend_breakdown(rb, baskets, card)
+
+    # ---- the dense path at the default config (bf16, K3); counts read around it
+    dense_cfg = AprioriConfig(min_support=0.002, max_k=4)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    dense_res = mine(db, dense_cfg, device=dev)
+    dense_s = time.perf_counter() - t0
+    dense_launches = ops.launch_counts()
+    k3_launches = dense_launches["support_count"]
+    dense_passes = expected_passes(dense_res, qcfg.num_items, dense_cfg)
+    log(f"[main-dense] mine {dense_s:.3f} s ({dense_res.total_frequent} frequent, {dense_passes} "
+        f"candidate passes); launches: {dense_launches} [{card}]")
+    if k3_launches != dense_passes or k3_launches == 0:
+        raise AssertionError(f"K3 launched {k3_launches} times for {dense_passes} candidate passes")
+    if dense_res.as_dict() != res.as_dict():
+        raise AssertionError("the dense mine through K3 differs from the packed mine")
+    dense_ref = mine(db, AprioriConfig(min_support=0.002, max_k=4, count_impl="ref"), device=dev)
+    if dense_ref.as_dict() != dense_res.as_dict():
+        raise AssertionError("the dense mine through K3 differs from the plain dense mine on the card")
+    log("[main-dense] dict-identical to the packed mine and to the plain dense mine on the card")
+    mine_breakdown(db, dense_cfg, dev, card, "K3")
+
+    # ---- SON over 8 partitions, dense: K3 in both phases; counts read around
+    # the run, and at the end of its phase 1 through a wrapper of the phase
+    son_seen = {}
+    phase1_fn = son_mod.union_local_winners
+
+    def phase1_counted(*args):
+        union = phase1_fn(*args)
+        son_seen["phase1"] = ops.launch_counts()["support_count"]
+        son_seen["union"] = union
+        return union
+
+    ops.reset_launch_counts()
+    son_mod.union_local_winners = phase1_counted
+    try:
+        t0 = time.perf_counter()
+        son_res = son_mod.mine_son(db, dense_cfg, device=dev, num_partitions=8)
+        son_s = time.perf_counter() - t0
+    finally:
+        son_mod.union_local_winners = phase1_fn
+    son_launches = ops.launch_counts()["support_count"]
+    phase1 = son_seen["phase1"]
+    union_levels = son_mod.winners_to_arrays(son_seen["union"])
+    phase2_passes = sum(math.ceil(c.shape[0] / dense_cfg.max_candidates_per_pass) for c in union_levels.values())
+    log(f"[son] mine_son over 8 partitions {son_s:.3f} s wall; K3 launched {son_launches} times "
+        f"({phase1} in phase 1; {son_launches - phase1} in phase 2 for {phase2_passes} passes over the "
+        f"union's levels { {k: int(c.shape[0]) for k, c in union_levels.items()} }) [{card}]")
+    if phase1 < 8 or son_launches - phase1 != phase2_passes or phase2_passes == 0:
+        raise AssertionError("mine_son did not launch K3 once per pass in both phases")
+    if son_res.as_dict() != dense_res.as_dict():
+        raise AssertionError("mine_son differs from the level-wise mine")
+    log(f"[son] dict-identical to the level-wise mine ({len(son_res.as_dict())} itemsets)")
 
     # ---- K2 at the main path's batch shape
     k2 = k2_main_shape(ops, rb, pack_bits(db[:1024]), dev, card)
@@ -466,8 +646,14 @@ def main() -> int:
              replaces="src/repro/kernels/rule_match.py:86", launches=k2_launches,
              max_abs_err=k2["max_abs_err"], ms=k2["ms"], plain_ms=k2["plain_ms"],
              bound_ms=k2["bound_ms"], bound_by=k2["bound_by"], library_ms=None),
+        dict(name="support_count", route="cuda", source="src/repro_torch/kernels/csrc/support_count.cu",
+             replaces="src/repro/kernels/support_count.py:69", launches=k3_launches,
+             max_abs_err=k3["bf16"]["max_abs_err"], ms=k3["bf16"]["ms"], plain_ms=k3["bf16"]["plain_ms"],
+             bound_ms=k3["bf16"]["bound_ms"], bound_by=k3["bf16"]["bound_by"], library_ms=None,
+             gemm_ms=k3["bf16"]["gemm_ms"]),
     ]
     log(f"[k1] popcount mode at the same shape: {json.dumps(k1['popcount'])} [{card}]")
+    log(f"[k3] int8 operands at the same shape: {json.dumps(k3['int8'])} [{card}]")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -3,19 +3,23 @@
 Per level k:
   driver (host):  candidate generation from F_{k-1}   (core.candidates)
   Map (device):   support counting of every candidate over the whole DB
-                  (kernels.ops.support_count_packed — the K1 CUDA kernel)
+                  (kernels.ops.support_count — the K3 tensor-core kernel —
+                  or kernels.ops.support_count_packed — the K1 kernel)
   driver (host):  prune by min support -> F_k
 
-The transaction store is packed uint32 bitsets (N, ceil(I/32)), held on
-the device as an int32 view, placed ONCE (``place_db``).  Candidates pad
-with zero rows and ``|c| = -1`` lengths (never match).  A level's candidate
-passes run as a depth-2 pipeline: the host places pass p+1 (a pinned-host,
-non-blocking copy) and launches its count before it waits on pass p's
-``.cpu()``.  Counting is exact (int32).
+Two device representations of the transaction store (DESIGN.md §4):
+  * ``dense``  — {0,1} (N, Ip) in the operand dtype (bfloat16 or int8),
+    the item axis padded once with zero columns to the K3 kernel's multiple
+    (``kernels.support_count.item_width``);
+  * ``packed`` — uint32 bitsets (N, ceil(I/32)), held as an int32 view.
+Either is placed ONCE (``place_db``).  Candidates pad with zero rows and
+``|c| = -1`` lengths (never match).  A level's candidate passes run as a
+depth-2 pipeline: the host places pass p+1 (a pinned-host, non-blocking
+copy) and launches its count before it waits on pass p's ``.cpu()``.
+Counting is exact (int32).
 
-Only ``representation="packed"`` is ported; the dense representation needs
-the K3 kernel (ROADMAP, TPU kernels to port, K3).  A mesh (2-D data x model
-decomposition) is ROADMAP item 11; this module is the ``mesh=None`` path.
+A mesh (2-D data x model decomposition) is ROADMAP item 11; this module is
+the ``mesh=None`` path.
 """
 
 from __future__ import annotations
@@ -32,8 +36,10 @@ from repro_torch.core import candidates as cand_mod
 from repro_torch.core import itemsets as enc
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import support_count as k3
 
 COUNT_IMPLS = ("auto", "kernel", "ref")
+REPRESENTATIONS = ("dense", "packed")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +47,7 @@ class AprioriConfig:
     min_support: float = 0.01          # fraction of |DB|; min_count = ceil(frac * N)
     max_k: int = 8                     # maximum itemset size to mine
     count_impl: str = "auto"           # auto (by device) | kernel (CUDA only) | ref (plain)
-    representation: str = "dense"      # dense {0,1} int8 | packed uint32 bitsets
+    representation: str = "dense"      # dense {0,1} bf16/int8 | packed uint32 bitsets
     data_axes: tuple = ("data",)       # mesh axes sharding the transaction rows
     model_axis: str | None = None      # mesh axis sharding the candidate rows
     candidate_pad: int = 256           # K padded to a multiple (pass bucket)
@@ -96,35 +102,52 @@ def _pad_bucket(k: int, quantum: int) -> int:
 
 
 def _check_cfg(cfg: AprioriConfig) -> None:
-    if cfg.representation == "dense":
-        raise NotImplementedError(
-            "representation='dense' needs the dense support-count kernel, which is "
-            "not ported yet (ROADMAP.md, TPU kernels to port, K3); use 'packed'"
-        )
-    if cfg.representation != "packed":
+    if cfg.representation not in REPRESENTATIONS:
         raise ValueError(f"representation must be dense|packed, got {cfg.representation!r}")
     if cfg.count_impl not in COUNT_IMPLS:
         raise ValueError(f"count_impl must be one of {COUNT_IMPLS}, got {cfg.count_impl!r}")
+    if cfg.operand_dtype not in k3.DTYPES:
+        raise ValueError(f"operand_dtype must be bf16|int8, got {cfg.operand_dtype!r}")
 
 
 def make_count_step(cfg: AprioriConfig) -> Callable:
-    """The support-count step ``fn(T (N,W) int32, C (Kp,W) int32, lengths
-    (Kp,) int32) -> counts (Kp,) int32`` on the operands' device."""
-    _check_cfg(cfg)
+    """The support-count step ``fn(T, C, lengths (Kp,) int32) -> counts
+    (Kp,) int32`` on the operands' device.
 
-    def count_step(t, c, ln):
-        return kops.support_count_packed(t, c, ln, impl=cfg.count_impl, mode=cfg.packed_mode)
+    Dense:  T (N, Ip), C (Kp, Ip) {0,1} in the operand dtype (K3).
+    Packed: T (N, W), C (Kp, W) int32 word views (K1).
+    """
+    _check_cfg(cfg)
+    if cfg.representation == "dense":
+
+        def count_step(t, c, ln):
+            return kops.support_count(t, c, ln, impl=cfg.count_impl, operand_dtype=cfg.operand_dtype)
+
+    else:
+
+        def count_step(t, c, ln):
+            return kops.support_count_packed(t, c, ln, impl=cfg.count_impl, mode=cfg.packed_mode)
 
     return count_step
 
 
 def place_db(t_np: np.ndarray, cfg: AprioriConfig, device="cuda") -> torch.Tensor:
-    """Pack the dense {0,1} DB to bitsets and place it on ``device`` ONCE
-    for the whole mine: an (N, W) int32 view of the uint32 words."""
+    """Encode the dense {0,1} DB and place it on ``device`` ONCE for the
+    whole mine.
+
+    Dense: (N, k3.item_width(I)) in the operand dtype — one int8 copy to the
+    device, then the zero-column pad and the cast there (the JAX wrapper
+    casts and pads the whole DB on every pass instead).
+    Packed: an (N, W) int32 view of the uint32 bitset words.
+    """
     dev = resolve_device(device)
     _check_cfg(cfg)
-    words = enc.pack_bits(np.asarray(t_np, dtype=np.int8)).view(np.int32)
-    return torch.from_numpy(words).to(dev)
+    t_np = np.asarray(t_np, dtype=np.int8)
+    if cfg.representation == "packed":
+        return torch.from_numpy(enc.pack_bits(t_np).view(np.int32)).to(dev)
+    t = torch.from_numpy(t_np).to(dev)
+    t = torch.nn.functional.pad(t, (0, k3.item_width(t_np.shape[1]) - t_np.shape[1]))
+    return t.to(k3.DTYPES[cfg.operand_dtype][1])
 
 
 def _candidate_quantum(cfg: AprioriConfig) -> int:
@@ -133,20 +156,29 @@ def _candidate_quantum(cfg: AprioriConfig) -> int:
 
 
 def _place_candidates(chunk: np.ndarray, kp: int, num_items: int, cfg: AprioriConfig, device):
-    """Encode one candidate pass to device tensors: (Kp, W) int32 words
-    zero-padded to the bucket, plus lengths with ``|c| = -1`` padding.  On
-    CUDA the host buffers are pinned and the copies are non-blocking, so the
-    caller can launch the count before earlier passes finish."""
+    """Encode one candidate pass to device tensors, zero-padded to the
+    bucket: (Kp, k3.item_width(I)) {0,1} rows in the operand dtype, or (Kp, W)
+    int32 words; plus lengths with ``|c| = -1`` padding.  On CUDA the host
+    buffers are pinned and the copies are non-blocking (dense rows cross as
+    int8 and are cast on the device, in stream order), so the caller can
+    launch the count before earlier passes finish."""
     dev = torch.device(device)
-    c_host = np.zeros((kp, enc.packed_words(num_items)), dtype=np.uint32)
-    c_host[: chunk.shape[0]] = enc.itemsets_to_packed(chunk, num_items)
+    if cfg.representation == "packed":
+        c_host = np.zeros((kp, enc.packed_words(num_items)), dtype=np.uint32)
+        c_host[: chunk.shape[0]] = enc.itemsets_to_packed(chunk, num_items)
+        c_host = c_host.view(np.int32)
+    else:
+        c_host = np.zeros((kp, k3.item_width(num_items)), dtype=np.int8)
+        c_host[: chunk.shape[0]] = enc.itemsets_to_dense(chunk, c_host.shape[1])
     lengths = np.full(kp, -1, dtype=np.int32)
     lengths[: chunk.shape[0]] = chunk.shape[1]
-    c_t = torch.from_numpy(c_host.view(np.int32))
+    c_t = torch.from_numpy(c_host)
     len_t = torch.from_numpy(lengths)
     if dev.type == "cuda":
-        return (c_t.pin_memory().to(dev, non_blocking=True),
-                len_t.pin_memory().to(dev, non_blocking=True))
+        c_t = c_t.pin_memory().to(dev, non_blocking=True)
+        len_t = len_t.pin_memory().to(dev, non_blocking=True)
+    if cfg.representation == "dense":
+        c_t = c_t.to(k3.DTYPES[cfg.operand_dtype][1])
     return c_t, len_t
 
 

@@ -4,8 +4,8 @@ The dense format is a {0,1} int8 matrix over the item vocabulary:
 transactions (N, I) and candidate itemsets (K, I).  Containment ``c ⊆ t``
 then becomes ``<t, c> == |c|`` (DESIGN.md §2).
 
-The packed uint32 bitset format (N, ceil(I/32)) is the device format of
-this package (DESIGN.md §4): containment ``c ⊆ t`` becomes per-word
+The packed uint32 bitset format (N, ceil(I/32)) is the other device format
+(DESIGN.md §4): containment ``c ⊆ t`` becomes per-word
 ``t & c == c``, at 1 bit per cell.  Device tensors hold these words as an
 ``int32`` view (torch has no uint32 right shift on the CPU); the view is
 bit-identical, so ``pack_bits(x).view(np.int32)`` is what goes to the card.
@@ -29,6 +29,18 @@ def dense_from_lists(transactions, num_items: int) -> np.ndarray:
             if (idx < 0).any() or (idx >= num_items).any():
                 raise ValueError(f"item id out of range in transaction {row}")
             out[row, idx] = 1
+    return out
+
+
+def itemsets_to_dense(itemsets: np.ndarray, num_items: int) -> np.ndarray:
+    """(K, k) arrays of item ids -> dense {0,1} int8 matrix (K, num_items)."""
+    itemsets = np.asarray(itemsets)
+    if itemsets.ndim != 2:
+        raise ValueError("itemsets must be (K, k)")
+    k_count = itemsets.shape[0]
+    out = np.zeros((k_count, num_items), dtype=np.int8)
+    rows = np.repeat(np.arange(k_count), itemsets.shape[1])
+    out[rows, itemsets.ravel()] = 1
     return out
 
 

@@ -22,6 +22,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
     "support_count_packed": CSRC / "support_count_packed.cu",
     "rule_match": CSRC / "rule_match.cu",
+    "support_count": CSRC / "support_count.cu",
 }
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -109,4 +110,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = i32
         lib.rule_match_smem_bytes.argtypes = [i32]
         lib.rule_match_smem_bytes.restype = ctypes.c_longlong
+    elif name == "support_count":
+        fn = lib.support_count_launch
+        fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+        fn.restype = i32
     return lib

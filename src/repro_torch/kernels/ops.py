@@ -1,4 +1,4 @@
-"""Public wrappers around the two CUDA kernels.
+"""Public wrappers around the CUDA kernels.
 
 Each wrapper checks its operands (device, dtype, shape, contiguity) and then
 chooses by where the tensors live: CUDA tensors launch the kernel (or the
@@ -24,11 +24,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels import support_count as k3
 
 IMPLS = ("auto", "kernel", "ref")
 MODES = ("and_cmp", "popcount")
 
-LAUNCHES = {"support_count_packed": 0, "rule_match": 0}
+DENSE_DTYPES = tuple(dtype for _, dtype in k3.DTYPES.values())
+MAX_DENSE_ITEMS = 1 << 24  # bf16 sums stay exact integers in float32 below this
+
+LAUNCHES = {"support_count_packed": 0, "rule_match": 0, "support_count": 0}
 
 
 def reset_launch_counts() -> None:
@@ -90,6 +94,72 @@ def support_count_packed(t_packed, c_packed, lengths, *, impl: str = "auto", mod
 
     out = k1.launch(t_packed, c_packed, lengths, mode)
     LAUNCHES["support_count_packed"] += 1
+    return out
+
+
+def _check_dense(name: str, x: torch.Tensor, device) -> None:
+    _check(name, x, x.dtype if isinstance(x, torch.Tensor) else None, 2, device)
+    if x.dtype not in DENSE_DTYPES:
+        raise TypeError(f"{name} must be int8 or bfloat16 {{0,1}}, got {x.dtype}")
+
+
+def pack_bits_device(dense: torch.Tensor, num_items: int | None = None) -> torch.Tensor:
+    """Dense {0,1} (R, I) -> packed (R, ceil(I/32)) int32 word views on the
+    operand's device, little-endian bits per word: the torch twin of
+    ``core.itemsets.pack_bits``.
+
+    The JAX package sums the shifted bits in uint32, which wraps at 32 bits;
+    a torch sum would widen (F3).  Here the bits are OR-ed into int32 words,
+    so a word with bit 31 set holds the same 32 bits (negative in the view).
+    """
+    r, i = dense.shape
+    if num_items is not None and num_items != i:
+        raise ValueError(f"pack_bits_device: {i} item columns, expected {num_items}")
+    words = (i + 31) // 32
+    bits = torch.nn.functional.pad(dense.to(torch.int32), (0, words * 32 - i)).reshape(r, words, 32)
+    out = torch.zeros((r, words), dtype=torch.int32, device=dense.device)
+    for b in range(32):
+        out |= bits[:, :, b] << b
+    return out
+
+
+def support_count(t_dense, c_dense, lengths, *, impl: str = "auto", operand_dtype: str = "bf16"):
+    """Support counts over dense {0,1} operands (exact int32).
+
+    t_dense: (N, I), c_dense: (K, I), int8 or bfloat16 {0,1}; lengths: (K,)
+    int32 with ``len = -1`` marking padded candidate rows.  Any (N, I, K) on
+    the plain route.  The kernel route takes both operands already in the
+    operand dtype with the item axis padded to
+    ``kernels.support_count.item_width``, as ``place_db`` and the candidate
+    placement hand them over, and raises otherwise: it copies nothing per
+    pass.  operand_dtype: bf16 (float accumulation) | int8 (int
+    accumulation); the counts are the same in both.
+    Returns (K,) int32 on the operands' device.
+    """
+    dev = t_dense.device
+    _check_dense("t_dense", t_dense, dev)
+    _check_dense("c_dense", c_dense, dev)
+    _check("lengths", lengths, torch.int32, 1, dev)
+    n, i = t_dense.shape
+    if c_dense.shape[1] != i:
+        raise ValueError("transaction and candidate item counts must agree")
+    if lengths.shape[0] != c_dense.shape[0]:
+        raise ValueError("lengths must have one entry per candidate row")
+    if operand_dtype not in k3.DTYPES:
+        raise ValueError(f"operand_dtype must be one of {tuple(k3.DTYPES)}, got {operand_dtype!r}")
+    if i >= MAX_DENSE_ITEMS:
+        raise ValueError(f"{i} items: float32 intersection sums are exact only below 2^24")
+    if not _use_kernel(impl, dev, "support_count"):
+        return ref.support_count_blocked(t_dense, c_dense, lengths)
+    _, dtype = k3.DTYPES[operand_dtype]
+    if t_dense.dtype != dtype or c_dense.dtype != dtype:
+        raise TypeError(f"support_count: the {operand_dtype} kernel takes {dtype} operands, "
+                        f"got {t_dense.dtype} and {c_dense.dtype}")
+    if i % k3.ITEM_MULTIPLE:
+        raise ValueError(f"support_count: the kernel takes an item axis padded to a multiple of "
+                         f"{k3.ITEM_MULTIPLE} (support_count.item_width), got {i}")
+    out = k3.launch(t_dense, c_dense, lengths, operand_dtype)
+    LAUNCHES["support_count"] += 1
     return out
 
 

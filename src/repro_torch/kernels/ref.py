@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the two kernels, on any device.
+"""Plain PyTorch versions of the kernels, on any device.
 
 Packed words are ``int32`` views of the uint32 bitsets: ``&`` and ``==`` are
 bit-identical on the view, and every right shift is followed by ``& 1``
@@ -13,6 +13,40 @@ import torch
 
 # elements of one (rows, candidates, words) intermediate in the blocked forms
 _BLOCK_ELEMS = 1 << 25
+
+
+def support_count_ref(t_dense, c_dense, lengths):
+    """Exact support counts over dense {0,1} operands.
+
+    t_dense: (N, I) {0,1}, c_dense: (K, I) {0,1}, of any dtype.
+    lengths: (K,) int32 itemset sizes (``len = -1`` marks padding rows,
+             which never match: an intersection is >= 0).
+    returns: (K,) int32 — #transactions t with <t, c> == len.
+
+    The JAX oracle multiplies in int32.  Torch on CUDA has no int32 matrix
+    product, so the intersections are a float32 product on every device.
+    That is exact while I < 2^24: every product is 0 or 1 and every partial
+    sum an integer, whatever the order of the sum.  TF32 would round no
+    {0,1} operand either, but callers on the card keep it off
+    (``torch.backends.cuda.matmul.allow_tf32 = False``) so that this
+    stays a full float32 product and makes no claim on TF32's rounding.
+    Materialises the (N, K) intersections; see :func:`support_count_blocked`.
+    """
+    inter = t_dense.to(torch.float32) @ c_dense.to(torch.float32).T
+    return (inter == lengths.to(torch.float32)[None, :]).sum(dim=0, dtype=torch.int32)
+
+
+def support_count_blocked(t_dense, c_dense, lengths, block_k: int = 512):
+    """:func:`support_count_ref` over candidate blocks, so the float32
+    intersection never grows past (N, block_k).  Blocks are slices, so no
+    padding row exists; the result equals the unblocked form exactly."""
+    k = c_dense.shape[0]
+    t32 = t_dense.to(torch.float32)
+    counts = torch.empty(k, dtype=torch.int32, device=c_dense.device)
+    for k0 in range(0, k, block_k):
+        blk = slice(k0, k0 + block_k)
+        counts[blk] = support_count_ref(t32, c_dense[blk], lengths[blk])
+    return counts
 
 
 def support_count_packed_ref(t_packed, c_packed, lengths=None, block_k: int = 256):

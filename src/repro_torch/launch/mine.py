@@ -5,12 +5,16 @@
   # mine AND emit a servable rulebook artifact (same .npz as the JAX package):
   PYTHONPATH=src python -m repro_torch.launch.mine ... --rulebook rb.npz \\
       --min-confidence 0.6 --rule-score confidence --max-rules 8192
+  # SON, or the packed representation (K1) in place of the dense one (K3):
+  PYTHONPATH=src python -m repro_torch.launch.mine ... --algo son --partitions 8
+  PYTHONPATH=src python -m repro_torch.launch.mine ... --representation packed
   # on the CPU (plain versions of the kernels):
   PYTHONPATH=src python -m repro_torch.launch.mine ... --device cpu
 
-The in-memory level-wise path over packed bitsets.  The last line is the
-same JSON object the JAX package's mine CLI prints (``seconds``,
-``total_frequent``, ``levels``), so the two can be diffed.
+The in-memory paths: level-wise, SON and the paper's all-subsets map, over
+dense or packed transactions.  The last line is the same JSON object the
+JAX package's mine CLI prints (``seconds``, ``total_frequent``,
+``levels``), so the two can be diffed.
 """
 
 from __future__ import annotations
@@ -28,8 +32,12 @@ def main(argv=None):
     ap.add_argument("--min-support", type=float, default=0.02)
     ap.add_argument("--max-k", type=int, default=6)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--representation", default="packed", choices=["packed", "dense"],
-                    help="device transaction store (dense needs the unported K3 kernel)")
+    ap.add_argument("--impl", default="auto", choices=["auto", "kernel", "ref"],
+                    help="count step: by device, the CUDA kernel only, or the plain version")
+    ap.add_argument("--representation", default="dense", choices=["dense", "packed"],
+                    help="device transaction store: dense {0,1} (K3) or packed uint32 bitsets (K1)")
+    ap.add_argument("--algo", default="levelwise", choices=["levelwise", "son", "naive_paper"])
+    ap.add_argument("--partitions", type=int, default=8, help="SON phase-1 partitions")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--rules", action="store_true", help="extract association rules")
     ap.add_argument("--min-confidence", type=float, default=0.6)
@@ -43,6 +51,7 @@ def main(argv=None):
 
     from repro_torch.core.apriori import AprioriConfig, mine
     from repro_torch.core.rules import extract_rules
+    from repro_torch.core.son import mine_son
     from repro_torch.data.synthetic import QuestConfig, gen_transactions
     from repro_torch.device import resolve_device
 
@@ -51,11 +60,14 @@ def main(argv=None):
                        avg_len=args.avg_len, seed=args.seed)
     print(f"[mine] generating {args.transactions} transactions x {args.items} items ...")
     db = gen_transactions(qcfg)
-    cfg = AprioriConfig(min_support=args.min_support, max_k=args.max_k,
-                        representation=args.representation)
+    cfg = AprioriConfig(min_support=args.min_support, max_k=args.max_k, count_impl=args.impl,
+                        representation=args.representation, use_naive_paper_map=(args.algo == "naive_paper"))
 
     t0 = time.time()
-    res = mine(db, cfg, device=device)
+    if args.algo == "son":
+        res = mine_son(db, cfg, device=device, num_partitions=args.partitions)
+    else:
+        res = mine(db, cfg, device=device)
     dt = time.time() - t0
 
     print(f"[mine] {dt:.2f}s on {device}; min_count={res.min_count}")

@@ -1,6 +1,6 @@
 """PyTorch port on the card: each CUDA kernel against its plain version at
-the sweep shapes, and the mine -> compile -> recommend chain through the
-kernels.  Marked ``gpu``; every test skips without a card (decided in the
+the sweep shapes, the mine -> compile -> recommend chain through the
+kernels, and the dense and SON mines through K3.  Marked ``gpu``; every test skips without a card (decided in the
 fixture, so every worker collects the same tests).  Run on the card with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
@@ -76,6 +76,69 @@ def test_support_count_kernel_exact(cuda, shape, mode):
     assert ops.launch_counts()["support_count_packed"] == before + 1
     assert torch.equal(got, want)
     assert torch.equal(got.cpu(), ops.support_count_packed(t.cpu(), c.cpu(), ln.cpu(), mode=mode))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("operand_dtype", ["bf16", "int8"])
+def test_dense_support_count_kernel_exact(cuda, shape, operand_dtype):
+    """K3 equals its plain version exactly, with zero rows, len = -1 rows, a
+    whole tile of them where K reaches 256, and the item axis padded to the
+    kernel's width; one launch per call."""
+    from repro_torch.kernels import support_count as k3
+
+    n, i, k = shape
+    rng = np.random.default_rng(sum(shape))
+    t = (rng.random((n, i)) < 0.3).astype(np.int8)
+    t[::7] = 0
+    c = np.zeros((k, i), np.int8)
+    for row in range(k):
+        c[row, rng.choice(i, size=rng.integers(1, min(6, i) + 1), replace=False)] = 1
+    lengths = c.sum(1).astype(np.int32)
+    lengths[rng.random(k) < 0.1] = -1
+    lengths[128:256] = -1
+    _, dt = k3.DTYPES[operand_dtype]
+    pad = ((0, 0), (0, k3.item_width(i) - i))
+    tt = torch.from_numpy(np.pad(t, pad)).to(cuda).to(dt)
+    tc = torch.from_numpy(np.pad(c, pad)).to(cuda).to(dt)
+    ln = torch.from_numpy(lengths).to(cuda)
+    before = ops.launch_counts()["support_count"]
+    got = ops.support_count(tt, tc, ln, operand_dtype=operand_dtype)
+    want = ops.support_count(tt, tc, ln, impl="ref")
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["support_count"] == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), ops.support_count(tt.cpu(), tc.cpu(), ln.cpu()))
+    packed = ops.support_count_packed(ops.pack_bits_device(tt), ops.pack_bits_device(tc), ln)
+    assert torch.equal(got, packed)
+
+
+def test_dense_kernel_takes_placed_operands_only(cuda):
+    """The kernel route copies nothing: an operand of another dtype than the
+    operand dtype, or an item axis off the kernel's multiple, raises."""
+    t = torch.ones((8, 64), dtype=torch.int8, device=cuda)
+    ln = torch.ones(4, dtype=torch.int32, device=cuda)
+    before = ops.launch_counts()["support_count"]
+    with pytest.raises(TypeError):
+        ops.support_count(t, t[:4], ln, operand_dtype="bf16")
+    with pytest.raises(ValueError):
+        ops.support_count(t[:, :48].contiguous(), t[:4, :48].contiguous(), ln, operand_dtype="int8")
+    assert ops.launch_counts()["support_count"] == before
+
+
+def test_dense_and_son_mines_through_kernels(cuda):
+    from repro_torch.core.apriori import AprioriConfig, mine
+    from repro_torch.core.son import mine_son
+    from repro_torch.data.synthetic import QuestConfig, gen_transactions
+
+    db = gen_transactions(QuestConfig(num_transactions=3000, num_items=100, avg_len=8, seed=5))
+    for dtype in ("bf16", "int8"):
+        cfg = AprioriConfig(min_support=0.03, max_k=4, operand_dtype=dtype)
+        cpu = mine(db, cfg, device="cpu").as_dict()
+        before = ops.launch_counts()["support_count"]
+        assert mine(db, cfg).as_dict() == cpu
+        mid = ops.launch_counts()["support_count"]
+        assert mine_son(db, cfg, num_partitions=4).as_dict() == cpu
+        assert mid > before and ops.launch_counts()["support_count"] > mid
 
 
 @pytest.mark.parametrize("shape", RULE_SHAPES)

@@ -143,20 +143,13 @@ def test_entry_points_need_cuda_or_explicit_cpu(small_db):
     assert recommend(rb, small_db[:4], device="cpu").items.shape[0] == 4
 
 
-def test_dense_representation_names_k3():
-    from repro_torch.core.apriori import AprioriConfig, mine
-
-    with pytest.raises(NotImplementedError, match="K3"):
-        mine(np.zeros((4, 8), np.int8), AprioriConfig(), device="cpu")
-
-
 def test_nvcc_command_targets_sm90a():
     from repro_torch.kernels import _build
 
     cmd = _build.nvcc_command(Path("x.cu"), Path("x.so"))
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert "-shared" in cmd and "-Xptxas" in cmd
-    assert set(_build.SOURCES) == {"support_count_packed", "rule_match"}
+    assert set(_build.SOURCES) == {"support_count_packed", "rule_match", "support_count"}
     assert all(p.exists() for p in _build.SOURCES.values())
 
 
