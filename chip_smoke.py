@@ -5,8 +5,10 @@
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, holds each
 against its plain PyTorch version on the card (K1 packed and K3 dense
 support counting exactly, K3 in both operand dtypes and against K1's counts;
-K2 rule matching within rtol=1e-5, atol=1e-6 and bit-identical run to run),
-times them, then drives three paths through the port's entry points at the
+K2 rule matching within rtol=1e-5, atol=1e-6 of the plain version and bit
+for bit equal to ``ref.rule_match_ordered``, its ordered-sum contract, also
+on a batch where every rule matches), times them, then drives three paths
+through the port's entry points at the
 FIMI T10I4D100K shape, each with the launch counts set to 0 just before it
 and read just after:
 
@@ -190,48 +192,87 @@ def k1_main_shape(ops, t_dev, cands, num_items, dev, card):
     return out, got   # the counts, the same in both modes
 
 
+def k2_check(ops, args, what: str, num_items=None):
+    """K2 on ``args``: bit-identical across two runs and to the ordered
+    plain version (``ref.rule_match_ordered``), and within RTOL / ATOL of the
+    plain version.  Returns (kernel output, the plain version's)."""
+    from repro_torch.kernels import ref
+
+    got = ops.rule_match(*args, num_items=num_items, impl="kernel")
+    again = ops.rule_match(*args, num_items=num_items, impl="kernel")
+    want = ops.rule_match(*args, num_items=num_items, impl="ref")
+    ordered = ref.rule_match_ordered(*args)[:, : got.shape[1]]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    if not torch.equal(got, again):
+        raise AssertionError(f"K2 {what}: two runs differ")
+    if not torch.equal(got, ordered):
+        raise AssertionError(f"K2 {what}: not bit-identical to rule_match_ordered")
+    return got, want
+
+
 def k2_sweep(ops, dev):
-    shapes = [(8, 16, 4), (100, 37, 33), (64, 96, 300), (33, 130, 257), (16, 31, 128)]
+    from repro_torch.core.itemsets import itemsets_to_packed, pack_bits
+
+    # the shapes of tests/test_rule_match.py, then W = 9, 10 and 35 with R
+    # past the kernel's 1,024-rule chunk, and W = 157 and 782, where a block
+    # holds 4 baskets and 1
+    shapes = [(8, 16, 4), (100, 37, 33), (64, 96, 300), (33, 130, 257), (16, 31, 128),
+              (64, 280, 300), (64, 300, 1030), (64, 1100, 1030), (16, 5000, 300), (8, 25000, 100)]
     for b, i, r in shapes:
         bk, a, ln, c, s = rule_problem(b, i, r, seed=b + i + r)
         args = (words(bk, dev), words(a, dev), torch.from_numpy(ln).to(dev), words(c, dev),
                 torch.from_numpy(s).to(dev))
-        got = ops.rule_match(*args, num_items=i, impl="kernel")
-        again = ops.rule_match(*args, num_items=i, impl="kernel")
-        want = ops.rule_match(*args, num_items=i, impl="ref")
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
-        if not torch.equal(got, again):
-            raise AssertionError(f"K2 {(b, i, r)}: two runs differ")
+        k2_check(ops, args, str((b, i, r)), num_items=i)
     # all-padding rules and zero baskets score zero
     bk, a, ln, c, s = rule_problem(20, 64, 40, seed=9)
     w = bk.shape[1]
     z = torch.zeros((12, w), dtype=torch.int32, device=dev)
-    out = ops.rule_match(words(bk, dev), z, torch.full((12,), -1, dtype=torch.int32, device=dev), z,
-                         torch.zeros(12, device=dev), num_items=64, impl="kernel")
-    out2 = ops.rule_match(torch.zeros((8, w), dtype=torch.int32, device=dev), words(a, dev),
-                          torch.from_numpy(ln).to(dev), words(c, dev), torch.from_numpy(s).to(dev),
-                          num_items=64, impl="kernel")
-    torch.cuda.synchronize()
+    out, _ = k2_check(ops, (words(bk, dev), z, torch.full((12,), -1, dtype=torch.int32, device=dev), z,
+                            torch.zeros(12, device=dev)), "all-padding rules", num_items=64)
+    out2, _ = k2_check(ops, (torch.zeros((8, w), dtype=torch.int32, device=dev), words(a, dev),
+                             torch.from_numpy(ln).to(dev), words(c, dev), torch.from_numpy(s).to(dev)),
+                       "zero baskets", num_items=64)
     if torch.count_nonzero(out) or torch.count_nonzero(out2):
         raise AssertionError("K2: padding rules or zero baskets scored non-zero")
-    log(f"[k2] sweep: {len(shapes)} shapes within rtol={RTOL} atol={ATOL} and bit-identical "
-        "across runs; all-padding rules and zero baskets score 0")
+    # rows with len = -1 that keep their bits and score, among zero baskets
+    bk, a, ln, c, s = rule_problem(64, 300, 1030, seed=11)
+    ln[np.random.default_rng(11).choice(np.flatnonzero(ln >= 0), 100, replace=False)] = -1
+    bk[::5] = 0
+    out, _ = k2_check(ops, (words(bk, dev), words(a, dev), torch.from_numpy(ln).to(dev), words(c, dev),
+                            torch.from_numpy(s).to(dev)), "len = -1 rows holding bits", num_items=300)
+    if torch.count_nonzero(out[::5]):
+        raise AssertionError("K2: zero baskets scored non-zero")
+    # half the antecedents and most consequents hold bits in more than the
+    # four words the kernel compacts
+    rng = np.random.default_rng(12)
+    bk = pack_bits((rng.random((64, 300)) < 0.7).astype(np.int8))
+    bk[::3] = pack_bits(np.ones((1, 300), np.int8))
+    wide = np.concatenate([itemsets_to_packed(np.sort(rng.choice(300, m, replace=False))[None], 300)
+                           for m in rng.integers(5, 9, 1030)])
+    a = np.where((rng.random(1030) < 0.5)[:, None], wide, a)
+    c = np.concatenate([itemsets_to_packed(np.sort(rng.choice(300, m, replace=False))[None], 300)
+                        for m in rng.integers(1, 9, 1030)])
+    ln = np.array([sum(bin(int(x)).count("1") for x in row) for row in a], np.int32)
+    ln[rng.random(1030) < 0.1] = -1
+    k2_check(ops, (words(bk, dev), words(a, dev), torch.from_numpy(ln).to(dev), words(c, dev),
+                   torch.from_numpy(s).to(dev)), "rules holding bits in more than four words", num_items=300)
+    log(f"[k2] sweep: {len(shapes)} shapes within rtol={RTOL} atol={ATOL}, bit-identical across runs "
+        "and to rule_match_ordered (torch.equal); all-padding rules, zero baskets, len = -1 rows "
+        "holding bits and rules wider than four words likewise, the padding inert")
 
 
 def k2_main_shape(ops, rb, b_words, dev, card):
-    """K2 at the main path's batch: 1024 baskets against the mined rulebook."""
+    """K2 at the main path's batch: 1024 baskets against the mined rulebook,
+    then 1024 baskets that hold every item."""
+    from repro_torch.core.itemsets import pack_bits
     from repro_torch.kernels import ref
 
     b = words(b_words, dev)
     args = (b, rb.ante_packed, rb.ante_len, rb.cons_packed, rb.scores)
-    got = ops.rule_match(*args, impl="kernel")
-    again = ops.rule_match(*args, impl="kernel")
-    want = ops.rule_match(*args, impl="ref")
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
-    if not torch.equal(got, again):
-        raise AssertionError("K2 main shape: two runs differ")
+    t0 = time.perf_counter()
+    got, want = k2_check(ops, args, "main shape")
+    check_s = time.perf_counter() - t0
     ms, plain_ms = alternate(lambda: ops.rule_match(*args, impl="ref"),
                              lambda: ops.rule_match(*args, impl="kernel"), kernel_reps=20, plain_reps=3)
     nb, w = b.shape
@@ -243,21 +284,42 @@ def k2_main_shape(ops, rb, b_words, dev, card):
     needed_tests = nb * int(((rb.ante_packed != 0).sum(1) * valid).sum().item())
     cons_items = ref.popcount32(rb.cons_packed).sum(1).to(torch.float32)
     matched_items = 0.0
+    per_basket = []
     for b0 in range(0, nb, 64):
         blk = b[b0 : b0 + 64]
         hit = ((blk[:, None, :] & rb.ante_packed[None]) == rb.ante_packed[None]).all(-1) & valid
         matched_items += float((hit.to(torch.float32) @ cons_items).sum().item())
+        per_basket.append(hit.sum(1))
+    per_basket = torch.cat(per_basket).to(torch.float64)
     needed_flops = 2 * matched_items
     byte_count = 4 * (nb * w + 2 * r * w + 2 * r + nb * 32 * w)
     ops_ms = max(needed_tests / INT32_OP_PER_S, needed_flops / FP32_FLOP_PER_S) * 1e3
     bound_ms, bound_by = bound(byte_count, ops_ms)
     err = float((got - want).abs().max().item())
-    log(f"[k2] B={nb} R={r} W={w}: max |kernel - plain| {err:.3e}, bit-identical across runs; "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+    log(f"[k2] B={nb} R={r} W={w}: max |kernel - plain| {err:.3e}, bit-identical across runs and to "
+        f"rule_match_ordered on all {nb} baskets (checks took {check_s:.1f} s); kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms; matched rules per basket mean {per_basket.mean().item():.1f}, max "
+        f"{int(per_basket.max().item())}; bound {bound_ms:.4f} ms ({bound_by}: "
         f"{byte_count:.3e} B, {needed_tests:.3e} antecedent word tests, {needed_flops:.3e} fan-out "
-        f"flop of matched rules); dense-count bound {dense_flops / FP32_FLOP_PER_S * 1e3:.4f} ms "
-        f"({dense_flops:.3e} = 2*B*R*32W fp32 flop at {FP32_FLOP_PER_S:.2e}/s) [{card}]")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+        f"flop of matched rules = {needed_flops / dense_flops:.2e} of the dense count); dense-count bound "
+        f"{dense_flops / FP32_FLOP_PER_S * 1e3:.4f} ms ({dense_flops:.3e} = 2*B*R*32W fp32 flop at "
+        f"{FP32_FLOP_PER_S:.2e}/s) [{card}]")
+
+    # the worst case for a sparse fan-out: every basket holds every item, so
+    # every real rule matches every basket
+    full = words(pack_bits(np.ones((nb, rb.num_items), np.int8)), dev)
+    all_args = (full, rb.ante_packed, rb.ante_len, rb.cons_packed, rb.scores)
+    t0 = time.perf_counter()
+    k2_check(ops, all_args, "all-match batch")
+    check_s = time.perf_counter() - t0
+    all_ms = cuda_ms(lambda: ops.rule_match(*all_args, impl="kernel"), 5)
+    live = int(valid.sum().item())
+    log(f"[k2] all-match B={nb} R={r} W={w}: all {live} real rules match each basket; within "
+        f"rtol={RTOL} atol={ATOL} of the plain version, bit-identical across runs and to "
+        f"rule_match_ordered on all {nb} baskets (checks took {check_s:.1f} s); kernel {all_ms:.4f} ms "
+        f"(limit 17.6 ms) [{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                all_match_ms=all_ms)
 
 
 def dense_problem(n, i, k, seed):
@@ -425,17 +487,36 @@ def mine_breakdown(db, cfg, dev, card, kernel):
 
 
 def recommend_breakdown(rb, baskets, card):
-    """The recommend call again, with basket packing (host) and the K2
-    launches (device, CUDA events) timed inside its wall time."""
+    """The recommend call again, warm: basket packing on the host, then
+    recommend on the packed baskets as it is (warm queries/s), then once
+    more with its phases timed: each batch's H2D copy, match step (host wall,
+    and K2's device time by CUDA events), top-k sort and D2H copy.  Each timed
+    phase synchronises before and after, so the phases do not overlap."""
     from repro_torch.serving import recommend as rec_mod
 
     t0 = time.perf_counter()
     packed = rec_mod.pack_baskets(baskets, rb.num_items)
     pack_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec_mod.recommend(rb, packed, top_k=10, batch_size=1024, device=rb.device)
+    warm_s = time.perf_counter() - t0
+
     step = rec_mod.make_match_step()
     events = []
+    phase_s = {"h2d": 0.0, "match": 0.0, "topk": 0.0, "d2h": 0.0}
 
-    def timed_step(*args):
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            phase_s[name] += time.perf_counter() - t
+            return out
+        return run
+
+    def event_step(*args):
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
         out = step(*args)
@@ -443,14 +524,27 @@ def recommend_breakdown(rb, baskets, card):
         events.append((e0, e1))
         return out
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    rec_mod.recommend(rb, packed, top_k=10, batch_size=1024, device=rb.device, match_step=timed_step)
-    wall = time.perf_counter() - t0
+    hooks = {"_to_device": "h2d", "_topk_items": "topk", "_to_host": "d2h"}
+    originals = {attr: getattr(rec_mod, attr) for attr in hooks}
+    for attr, name in hooks.items():
+        setattr(rec_mod, attr, timed(name, originals[attr]))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec_mod.recommend(rb, packed, top_k=10, batch_size=1024, device=rb.device,
+                          match_step=timed("match", event_step))
+        wall = time.perf_counter() - t0
+    finally:
+        for attr, fn in originals.items():
+            setattr(rec_mod, attr, fn)
     kernel_ms = sum(e0.elapsed_time(e1) for e0, e1 in events)
-    log(f"[breakdown] recommend of {len(packed)} baskets: packing on the host {pack_s:.4f} s; "
-        f"recommend on packed baskets {wall:.4f} s wall, of which K2 device time {kernel_ms:.2f} ms "
-        f"over {len(events)} launches (device busy with K2 {kernel_ms / 1e3 / wall:.3f} of it) [{card}]")
+    n = len(packed)
+    rest = wall - sum(phase_s.values())
+    log(f"[breakdown] recommend of {n} baskets: packing on the host {pack_s:.4f} s; warm recommend on "
+        f"packed baskets {warm_s:.4f} s = {n / warm_s:.0f} queries/s ({n / (pack_s + warm_s):.0f} with "
+        f"packing); phases, synchronised, {wall:.4f} s: H2D {phase_s['h2d']:.4f} s, match "
+        f"{phase_s['match']:.4f} s (K2 device time {kernel_ms:.3f} ms over {len(events)} launches), "
+        f"top-k sort {phase_s['topk']:.4f} s, D2H {phase_s['d2h']:.4f} s, rest {rest:.4f} s [{card}]")
 
 
 def expected_passes(res, num_items, cfg) -> int:
@@ -645,7 +739,8 @@ def main() -> int:
         dict(name="rule_match", route="cuda", source="src/repro_torch/kernels/csrc/rule_match.cu",
              replaces="src/repro/kernels/rule_match.py:86", launches=k2_launches,
              max_abs_err=k2["max_abs_err"], ms=k2["ms"], plain_ms=k2["plain_ms"],
-             bound_ms=k2["bound_ms"], bound_by=k2["bound_by"], library_ms=None),
+             bound_ms=k2["bound_ms"], bound_by=k2["bound_by"], library_ms=None,
+             all_match_ms=k2["all_match_ms"]),
         dict(name="support_count", route="cuda", source="src/repro_torch/kernels/csrc/support_count.cu",
              replaces="src/repro/kernels/support_count.py:69", launches=k3_launches,
              max_abs_err=k3["bf16"]["max_abs_err"], ms=k3["bf16"]["ms"], plain_ms=k3["bf16"]["plain_ms"],

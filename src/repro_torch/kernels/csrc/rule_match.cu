@@ -8,149 +8,408 @@
 // for baskets b (B, W), antecedents a and consequents c (R, W) as uint32
 // words, lengths (R,) int32 and scores (R,) float32; out is (B, 32W) float32.
 //
-// What bounds it on this card: the fan-out, 2*B*R*32W fp32 operations over
-// a few MB of operands, so arithmetic rather than bytes.  The design:
-//   * one block per (16-basket tile, 128-item tile); 256 threads, each owns
-//     one item column and 8 baskets, accumulating in fp32 registers;
-//   * the block loops over all R in chunks of 32 rules staged in shared
-//     memory (antecedent words, length, score and the 4 consequent words of
-//     its item tile), computes the masked weights w[b, r] for the chunk into
-//     shared memory with a word-violation test, then adds w[b, r] *
-//     bit(c_r, i) for r in ascending order;
-//   * no float atomics and a fixed summation order: the result is the same
-//     bits on every run, which the serving tier's bit-identity contract
-//     needs; full fp32 (FMA with a {0,1} factor is an exact add), no
-//     tensor-core rounding of the scores.
-// Ragged B, R and W are masked here.  The kernel allocates nothing and
-// launches on the caller's stream.
+// The contract, bit for bit: each out[b, i] starts at +0 and adds s_r, one
+// rounded fp32 add at a time, for the matched rules with bit i in their
+// consequent, in ascending r.  A dense fan-out in ascending r (an FMA with a
+// {0,1} factor is an exact no-op or that one add) gives the same bits, and
+// so does kernels/ref.py::rule_match_ordered.  The sum is the same on every
+// run and a basket's row does not depend on the batch it came in, which the
+// serving tier's bit-identity contract needs.  So: no float atomics, no tree
+// over rules, no tensor cores for the scores.
+//
+// What bounds it on this card: the matched work is sparse.  At the main
+// shape (B = 1,024, R = 43,520 rules, W = 32) about 1.8e-5 of the dense
+// 2*B*R*32W fan-out is matched: about 1e6 fp32 adds and about 1.3e8
+// antecedent-word tests per batch.  The rulebook is 11 MB and stays
+// L2-resident.  Neither HBM nor the fp32 rate bounds it; the latency and the
+// shared-memory traffic of each basket's walk over the rules do.  A dense
+// fan-out, or skipping 32-rule chunks where nothing matched (a 16 x 32 chunk
+// holds about 9 matches), does 10^4 times the needed work, so the work is
+// sparse per basket and ordered:
+//   * compact_rules_kernel, once per launch, one thread per rule: the item
+//     ids of the antecedent and of the consequent, kMaxItems slots of each
+//     (four uint16 in 8 bytes), the unused slots repeating the first item.
+//     Rows with len < 0 are marked dead; a side with more than kMaxItems
+//     items is marked wide and read whole from the rulebook where it is used;
+//   * rule_match_kernel: a block owns kWarps baskets, one warp each, staged
+//     in shared memory, and walks R in ascending chunks of kChunk rules.
+//     Each chunk's slots, counts and scores are copied into shared memory
+//     with cp.async while the block works on the chunk before (two buffers);
+//   * match: lane l of a basket's warp tests rules g + l, g + 32 + l, ... on
+//     the antecedent's items only, without a branch (one 8-byte read and
+//     four basket-word reads a rule); __ballot_sync and __popc turn the hits
+//     into the chunk's list of matched rule ids in ascending order.  The
+//     list is bounded by the chunk, so nothing overflows even when every
+//     rule matches;
+//   * fan-out, 32 matched rules at a time: lane t reads rule t's slots and
+//     score and writes its consequent items to a list in rule order (a warp
+//     prefix sum of the item counts gives each lane its place); each item i
+//     is then queued, in that order, for lane i % 32 (__match_any_sync ranks
+//     the items of one owner), and every lane applies its queue in order to
+//     its items of the basket's row in shared memory.  Each item has one owner lane and its
+//     adds stay sequential in r, and no step walks the rules one at a time:
+//     the read-add-write chains of the 32 lanes run side by side.  A group
+//     holding a consequent wider than the slots goes rule by rule instead.
+//     The row is carried across chunks;
+//   * the row is written to out once, coalesced, at the end.
+// Ragged B, R and any W whose block fits in shared memory (fewer baskets per
+// block above 122 words, at most 1,328 words) are masked here.  The
+// kernels allocate nothing (the wrapper passes the scratch) and launch on
+// the caller's stream.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBaskets = 16;  // baskets per block
-constexpr int kItems = 128;   // items per block (4 words)
-constexpr int kItemWords = kItems / 32;
-constexpr int kRules = 32;    // rules per staged chunk
-constexpr int kPerThread = kBaskets / (kThreads / kItems);  // baskets per thread
+constexpr int kChunk = 1024;       // rules staged per chunk
+constexpr int kMaxItems = 4;       // item slots per antecedent and per consequent (uint16 each)
+constexpr int kUnroll = 4;         // 32-rule groups tested together
+constexpr int kRowStride = 33;     // floats per word in a row: 32 items + 1 pad
+constexpr int kQueue = 32 * kMaxItems;  // queue entries a lane may get from 32 rules
+constexpr int kBatch = 4;          // fan-out reads issued before their writes
+constexpr int kMaxWords = 2048;    // item ids fit in uint16
+constexpr int kDead = -1;          // len < 0: never matches
+constexpr int kWide = kMaxItems + 1;  // more than kMaxItems items
+constexpr long long kMaxSmem = 227 * 1024;
 
-__global__ void __launch_bounds__(kThreads)
+// The compact rules' scratch, one entry per rule: the item slots of the
+// antecedents, of the consequents, then the item counts, each count array
+// padded to 16 rules so that it is copied 4 bytes at a time.
+struct Compact {
+  uint2* ai;
+  uint2* ci;
+  signed char* an;
+  signed char* cn;
+};
+
+long long padded(int nr) { return (nr + 15LL) / 16 * 16; }
+
+long long scratch_bytes(int nr) { return 16LL * nr + 2 * padded(nr); }
+
+Compact carve(void* scratch, int nr) {
+  Compact c;
+  c.ai = static_cast<uint2*>(scratch);
+  c.ci = c.ai + nr;
+  c.an = reinterpret_cast<signed char*>(c.ci + nr);
+  c.cn = c.an + padded(nr);
+  return c;
+}
+
+// Dynamic shared memory of one block of `warps` baskets for w words: two
+// staged chunks (slots, scores), the baskets' rows and words, their fan-out
+// item lists and queue counts, match lists, the two chunks' item counts and
+// the lanes' fan-out queues.
+long long smem_bytes(int warps, int w) {
+  return 2 * (8LL * 2 * kChunk + 4LL * kChunk + 2LL * kChunk) +
+         4LL * warps * (w * (kRowStride + 1) + kQueue + 32) + 2LL * warps * kChunk + (long long)warps * kQueue * 32;
+}
+
+int pick_warps(int w) {
+  for (int warps = 8; warps > 1; warps /= 2)
+    if (smem_bytes(warps, w) <= kMaxSmem) return warps;
+  return 1;
+}
+
+__device__ __forceinline__ uint32_t slot(uint2 s, int k) {
+  const uint32_t half = k < 2 ? s.x : s.y;
+  return (k & 1) ? half >> 16 : half & 0xffffu;
+}
+
+// The item ids of one row in kMaxItems slots, the unused ones repeating the
+// first.  Returns their count, or kWide when there are more.
+__device__ int compact_row(const uint32_t* __restrict__ row, int w, uint2* slots) {
+  uint32_t it[kMaxItems] = {0u, 0u, 0u, 0u};
+  int n = 0;
+  auto keep = [&](uint32_t x, int j) {
+    for (; x; x &= x - 1u) {
+      const uint32_t item = 32u * j + (__ffs(x) - 1);
+#pragma unroll
+      for (int k = 0; k < kMaxItems; ++k)
+        if (k == n) it[k] = item;
+      ++n;
+    }
+  };
+  if ((w & 3) == 0) {
+    const uint4* r4 = reinterpret_cast<const uint4*>(row);
+#pragma unroll 8
+    for (int q = 0; q < w / 4; ++q) {
+      const uint4 v = __ldg(r4 + q);
+      keep(v.x, 4 * q);
+      keep(v.y, 4 * q + 1);
+      keep(v.z, 4 * q + 2);
+      keep(v.w, 4 * q + 3);
+    }
+  } else {
+    for (int q = 0; q < w; ++q) keep(__ldg(row + q), q);
+  }
+#pragma unroll
+  for (int k = 1; k < kMaxItems; ++k)
+    if (k >= n) it[k] = it[0];
+  *slots = make_uint2(it[0] | (it[1] << 16), it[2] | (it[3] << 16));
+  return n > kMaxItems ? kWide : n;
+}
+
+__global__ void compact_rules_kernel(const uint32_t* __restrict__ ante,
+                                     const int32_t* __restrict__ lengths,
+                                     const uint32_t* __restrict__ cons, Compact c, int nr, int w) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= nr) return;
+  if (lengths[r] < 0) {
+    c.an[r] = (signed char)kDead;
+    c.cn[r] = 0;
+    c.ai[r] = c.ci[r] = make_uint2(0u, 0u);
+    return;
+  }
+  c.an[r] = (signed char)compact_row(ante + (size_t)r * w, w, c.ai + r);
+  c.cn[r] = (signed char)compact_row(cons + (size_t)r * w, w, c.ci + r);
+}
+
+template <int kWarps>
+__global__ void __launch_bounds__(32 * kWarps)
 rule_match_kernel(const uint32_t* __restrict__ baskets,
                   const uint32_t* __restrict__ ante,
-                  const int32_t* __restrict__ lengths,
                   const uint32_t* __restrict__ cons,
-                  const float* __restrict__ scores,
+                  const float* __restrict__ scores, const Compact c,
                   float* __restrict__ out, int nb, int nr, int w) {
+  constexpr int kThreads = 32 * kWarps;
   extern __shared__ __align__(16) unsigned char smem[];
-  // weights first so float4 reads stay 16-byte aligned
-  float* wts = reinterpret_cast<float*>(smem);                        // [kBaskets][kRules]
-  uint32_t* cons_s = reinterpret_cast<uint32_t*>(wts + kBaskets * kRules);  // [kRules][kItemWords]
-  const int astride = w | 1;                                          // odd: no bank conflicts
-  uint32_t* bsk_s = cons_s + kRules * kItemWords;                     // [kBaskets][w]
-  uint32_t* ante_s = bsk_s + kBaskets * w;                            // [kRules][astride]
+  uint2* ai_b = reinterpret_cast<uint2*>(smem);                                  // [2][kChunk]
+  uint2* ci_b = ai_b + 2 * kChunk;                                               // [2][kChunk]
+  float* score_b = reinterpret_cast<float*>(ci_b + 2 * kChunk);                  // [2][kChunk]
+  float* row_s = score_b + 2 * kChunk;                                           // [kWarps][w][kRowStride]
+  uint32_t* bsk_s = reinterpret_cast<uint32_t*>(row_s + (size_t)kWarps * w * kRowStride);  // [kWarps][w]
+  uint32_t* item_s = bsk_s + kWarps * w;                                         // [kWarps][kQueue]
+  int* count_s = reinterpret_cast<int*>(item_s + kWarps * kQueue);               // [kWarps][32]
+  uint16_t* list_s = reinterpret_cast<uint16_t*>(count_s + kWarps * 32);        // [kWarps][kChunk]
+  signed char* an_b = reinterpret_cast<signed char*>(list_s + kWarps * kChunk);  // [2][kChunk]
+  signed char* cn_b = an_b + 2 * kChunk;                                         // [2][kChunk]
+  uint8_t* queue_s = reinterpret_cast<uint8_t*>(cn_b + 2 * kChunk);              // [kWarps][kQueue][32]
 
-  const int item0 = blockIdx.x * kItems;
-  const int word0 = blockIdx.x * kItemWords;
-  const int b0 = blockIdx.y * kBaskets;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b0 = blockIdx.x * kWarps;
+  const bool live = b0 + warp < nb;
+  const unsigned below = (1u << lane) - 1u;  // lanes before this one
 
-  for (int idx = tid; idx < kBaskets * w; idx += kThreads) {
-    const int bb = idx / w, j = idx % w;
-    bsk_s[idx] = (b0 + bb < nb) ? baskets[(size_t)(b0 + bb) * w + j] : 0u;
-  }
+  for (int idx = tid; idx < kWarps * w; idx += kThreads)  // bsk_s: [kWarps][w]
+    bsk_s[idx] = (b0 + idx / w < nb) ? baskets[(size_t)b0 * w + idx] : 0u;
+  for (int idx = tid; idx < kWarps * w * kRowStride; idx += kThreads) row_s[idx] = 0.0f;
+  for (int idx = tid; idx < kWarps * 32; idx += kThreads) count_s[idx] = 0;
 
-  const int il = tid % kItems;      // item column owned by this thread
-  const int bg = tid / kItems;      // basket group: baskets bg, bg+2, ...
-  const int iw = il / 32, ibit = il % 32;
-  float acc[kPerThread];
-#pragma unroll
-  for (int m = 0; m < kPerThread; ++m) acc[m] = 0.0f;
+  const uint32_t* bk = bsk_s + warp * w;
+  float* row = row_s + (size_t)warp * w * kRowStride;
+  uint16_t* list = list_s + warp * kChunk;
+  uint8_t* queue_w = queue_s + warp * kQueue * 32;       // [kQueue][32 lanes]
+  uint8_t* queue = queue_w + lane;                        // this lane's entry q at queue[32 * q]
+  int* counts = count_s + warp * 32;
+  uint32_t* items = item_s + warp * kQueue;
+  auto has = [&](uint32_t item) { return (bk[item >> 5] >> (item & 31u)) & 1u; };
 
-  for (int r0 = 0; r0 < nr; r0 += kRules) {
-    __syncthreads();  // previous chunk fully consumed (and baskets staged)
-    for (int idx = tid; idx < kRules * w; idx += kThreads) {
-      const int r = idx / w, j = idx % w;
-      ante_s[r * astride + j] = (r0 + r < nr) ? ante[(size_t)(r0 + r) * w + j] : 0u;
+  // cp.async of chunk r0 into buffer `buf`; the counts go 4 rules at a time
+  auto stage = [&](int r0, int buf) {
+    const int n = min(kChunk, nr - r0);
+    for (int lr = tid; lr < n; lr += kThreads) {
+      __pipeline_memcpy_async(ai_b + buf * kChunk + lr, c.ai + r0 + lr, 8);
+      __pipeline_memcpy_async(ci_b + buf * kChunk + lr, c.ci + r0 + lr, 8);
+      __pipeline_memcpy_async(score_b + buf * kChunk + lr, scores + r0 + lr, 4);
     }
-    for (int idx = tid; idx < kRules * kItemWords; idx += kThreads) {
-      const int r = idx / kItemWords, j = idx % kItemWords;
-      cons_s[idx] = (r0 + r < nr && word0 + j < w) ? cons[(size_t)(r0 + r) * w + word0 + j] : 0u;
+    for (int lr = 4 * tid; lr < n; lr += 4 * kThreads) {
+      __pipeline_memcpy_async(an_b + buf * kChunk + lr, c.an + r0 + lr, 4);
+      __pipeline_memcpy_async(cn_b + buf * kChunk + lr, c.cn + r0 + lr, 4);
     }
+    __pipeline_commit();
+  };
+  if (nr > 0) stage(0, 0);
+
+  for (int r0 = 0, buf = 0; r0 < nr; r0 += kChunk, buf ^= 1) {
+    const int n = min(kChunk, nr - r0);
+    __syncthreads();  // the previous chunk consumed; baskets and rows initialised
+    if (r0 + kChunk < nr) stage(r0 + kChunk, buf ^ 1);
+    else __pipeline_commit();
+    __pipeline_wait_prior(1);  // this chunk's copies have landed
     __syncthreads();
+    if (!live) continue;
+    const uint2* ai_s = ai_b + buf * kChunk;
+    const uint2* ci_s = ci_b + buf * kChunk;
+    const float* score_s = score_b + buf * kChunk;
+    const signed char* an_s = an_b + buf * kChunk;
+    const signed char* cn_s = cn_b + buf * kChunk;
 
-    // masked weights for this chunk: lanes of a warp take consecutive rules
-    for (int p = tid; p < kBaskets * kRules; p += kThreads) {
-      const int r = p % kRules, bb = p / kRules;
-      float wt = 0.0f;
-      if (r0 + r < nr) {
-        const uint32_t* a = ante_s + r * astride;
-        const uint32_t* bk = bsk_s + bb * w;
-        uint32_t v = 0u;
-        for (int j = 0; j < w; ++j) v |= (bk[j] & a[j]) ^ a[j];
-        const bool matched = (v == 0u) && (lengths[r0 + r] >= 0);
-        wt = (matched ? 1.0f : 0.0f) * scores[r0 + r];
-      }
-      wts[bb * kRules + r] = wt;
-    }
-    __syncthreads();
-
-    // fan-out: ascending r, one exact fp32 add per set consequent bit
-#pragma unroll 2
-    for (int r = 0; r < kRules; r += 4) {
-      const float f0 = (float)((cons_s[(r + 0) * kItemWords + iw] >> ibit) & 1u);
-      const float f1 = (float)((cons_s[(r + 1) * kItemWords + iw] >> ibit) & 1u);
-      const float f2 = (float)((cons_s[(r + 2) * kItemWords + iw] >> ibit) & 1u);
-      const float f3 = (float)((cons_s[(r + 3) * kItemWords + iw] >> ibit) & 1u);
+    // match: the chunk's hits for this warp's basket, as ascending rule ids
+    int cnt = 0;
+    for (int g = 0; g < n; g += 32 * kUnroll) {
+      bool ok[kUnroll];
+      bool wide = false;
 #pragma unroll
-      for (int m = 0; m < kPerThread; ++m) {
-        const float4 wv = *reinterpret_cast<const float4*>(wts + (bg + 2 * m) * kRules + r);
-        acc[m] = fmaf(wv.x, f0, acc[m]);
-        acc[m] = fmaf(wv.y, f1, acc[m]);
-        acc[m] = fmaf(wv.z, f2, acc[m]);
-        acc[m] = fmaf(wv.w, f3, acc[m]);
+      for (int q = 0; q < kUnroll; ++q) {
+        const int lr = g + 32 * q + lane;
+        const bool in = lr < n;
+        const int an = in ? an_s[lr] : kDead;
+        const uint2 a = in ? ai_s[lr] : make_uint2(0u, 0u);
+        const uint32_t all = has(slot(a, 0)) & has(slot(a, 1)) & has(slot(a, 2)) & has(slot(a, 3));
+        ok[q] = (an == 0) | ((an > 0) & (an <= kMaxItems) & (all != 0u));
+        wide |= an == kWide;
       }
+      if (__any_sync(0xffffffffu, wide)) {  // antecedents wider than the slots: rare
+#pragma unroll
+        for (int q = 0; q < kUnroll; ++q) {
+          const int lr = g + 32 * q + lane;
+          if (lr < n && an_s[lr] == kWide) {
+            const uint32_t* a = ante + (size_t)(r0 + lr) * w;
+            bool hit = true;
+            for (int k = 0; k < w && hit; ++k) {
+              const uint32_t x = __ldg(a + k);
+              hit = (bk[k] & x) == x;
+            }
+            ok[q] = hit;
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kUnroll; ++q) {
+        const unsigned hits = __ballot_sync(0xffffffffu, ok[q]);
+        if (ok[q]) list[cnt + __popc(hits & below)] = (uint16_t)(g + 32 * q + lane);
+        cnt += __popc(hits);
+      }
+    }
+    __syncwarp();
+
+    // fan-out, 32 matched rules at a time
+    for (int base = 0; base < cnt; base += 32) {
+      const int ng = min(32, cnt - base);
+      const int lr = list[base + min(lane, ng - 1)];
+      const int cn = lane < ng ? cn_s[lr] : 0;
+      const uint2 ci = ci_s[lr];
+      const float s = score_s[lr];
+      if (__any_sync(0xffffffffu, cn == kWide)) {  // rule by rule: rare
+        for (int m = 0; m < ng; ++m) {
+          const int cm = __shfl_sync(0xffffffffu, cn, m);
+          const uint2 cs = make_uint2(__shfl_sync(0xffffffffu, ci.x, m), __shfl_sync(0xffffffffu, ci.y, m));
+          const float sm = __shfl_sync(0xffffffffu, s, m);
+          const int lrm = __shfl_sync(0xffffffffu, lr, m);
+          if (cm == kWide) {
+            const uint32_t* cr = cons + (size_t)(r0 + lrm) * w;
+            for (int k = 0; k < w; ++k)
+              if ((__ldg(cr + k) >> lane) & 1u) row[k * kRowStride + lane] += sm;
+          } else {
+#pragma unroll
+            for (int k = 0; k < kMaxItems; ++k) {
+              const uint32_t item = slot(cs, k);
+              if (k < cm && (item & 31u) == (uint32_t)lane) row[(item >> 5) * kRowStride + lane] += sm;
+            }
+          }
+        }
+        continue;
+      }
+      // the group's items in rule order, item << 5 | rule: lane t's at [off, off + cn)
+      int off = cn;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, off, d);
+        if (lane >= d) off += v;
+      }
+      const int total = __shfl_sync(0xffffffffu, off, 31);
+      off -= cn;
+#pragma unroll
+      for (int k = 0; k < kMaxItems; ++k)
+        if (k < cn) items[off + k] = slot(ci, k) << 5 | (uint32_t)lane;
+      __syncwarp();
+      // queue each item's place for its owner lane i % 32, 32 places at a
+      // time: its rank among this round's places of the same owner, after
+      // the owner's places of earlier rounds (qn, held by the owner lane)
+      int qn = 0;
+      for (int e0 = 0; e0 < total; e0 += 32) {
+        const int e = e0 + lane;
+        const uint32_t owner = e < total ? (items[e] >> 5) & 31u : 32u;
+        const unsigned same = __match_any_sync(0xffffffffu, owner);
+        const int before = __shfl_sync(0xffffffffu, qn, owner & 31u);
+        if (owner < 32u) {
+          queue_w[32 * (before + __popc(same & below)) + owner] = (uint8_t)e;
+          if ((same & below) == 0u) counts[owner] = __popc(same);
+        }
+        __syncwarp();
+        qn += counts[lane];
+        counts[lane] = 0;
+        __syncwarp();
+      }
+      // then each lane adds its queue in order; kBatch reads go out before
+      // the writes that depend on them
+      const int qmax = __reduce_max_sync(0xffffffffu, qn);
+      for (int q0 = 0; q0 < qmax; q0 += kBatch) {
+        uint32_t v[kBatch];
+        float sv[kBatch];
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          v[b] = items[q0 + b < qn ? queue[32 * (q0 + b)] : 0];
+          sv[b] = __shfl_sync(0xffffffffu, s, v[b] & 31u);
+        }
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b)
+          if (q0 + b < qn) row[(v[b] >> 10) * kRowStride + lane] += sv[b];
+      }
+      __syncwarp();  // items is rewritten by the next group
     }
   }
 
-  const int item = item0 + il;
-  if (item < 32 * w) {
-#pragma unroll
-    for (int m = 0; m < kPerThread; ++m) {
-      const int b = b0 + bg + 2 * m;
-      if (b < nb) out[(size_t)b * (32 * w) + item] = acc[m];
-    }
+  __syncthreads();  // rows complete (and initialised, where R is empty)
+  if (!live) return;
+  float* o = out + (size_t)(b0 + warp) * (32 * w);
+  for (int i = 4 * lane; i < 32 * w; i += 128) {
+    const float* src = row + (i >> 5) * kRowStride + (i & 31);
+    *reinterpret_cast<float4*>(o + i) = make_float4(src[0], src[1], src[2], src[3]);
   }
+}
+
+template <int kWarps>
+int launch_with(const void* baskets, const void* ante, const void* cons, const void* scores,
+                const Compact& c, void* out, int nb, int nr, int w, cudaStream_t stream) {
+  const long long smem = smem_bytes(kWarps, w);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(rule_match_kernel<kWarps>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int grid = (nb + kWarps - 1) / kWarps;
+  rule_match_kernel<kWarps><<<grid, 32 * kWarps, (size_t)smem, stream>>>(
+      static_cast<const uint32_t*>(baskets), static_cast<const uint32_t*>(ante),
+      static_cast<const uint32_t*>(cons), static_cast<const float*>(scores), c,
+      static_cast<float*>(out), nb, nr, w);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Dynamic shared memory the launch needs for w words.
-extern "C" long long rule_match_smem_bytes(int w) {
-  const long long astride = w | 1;
-  return 4LL * (kBaskets * kRules + kRules * kItemWords + (long long)kBaskets * w +
-                (long long)kRules * astride);
-}
+// Dynamic shared memory the launch needs for w words (with as many baskets
+// per block as fit; one basket per block is the least).
+extern "C" long long rule_match_smem_bytes(int w) { return smem_bytes(pick_warps(w), w); }
+
+// Bytes of device scratch the launch needs for nr rules.
+extern "C" long long rule_match_scratch_bytes(int nr) { return scratch_bytes(nr); }
 
 // baskets (nb, w), ante / cons (nr, w) uint32 words; lengths (nr,) int32;
-// scores (nr,) float32; out (nb, 32w) float32.  Returns cudaGetLastError().
+// scores (nr,) float32; out (nb, 32w) float32; scratch of
+// rule_match_scratch_bytes(nr) bytes, 8-byte aligned.  Returns
+// cudaGetLastError().
 extern "C" int rule_match_launch(const void* baskets, const void* ante, const void* lengths,
-                                 const void* cons, const void* scores, void* out,
+                                 const void* cons, const void* scores, void* out, void* scratch,
                                  int nb, int nr, int w, void* stream) {
   if (nb <= 0) return 0;
-  if (w <= 0 || nr < 0) return (int)cudaErrorInvalidValue;
-  const long long smem = rule_match_smem_bytes(w);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(rule_match_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (w <= 0 || w > kMaxWords || nr < 0) return (int)cudaErrorInvalidValue;
+  if (rule_match_smem_bytes(w) > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Compact c = carve(scratch, nr);
+  if (nr > 0) {
+    compact_rules_kernel<<<(nr + 255) / 256, 256, 0, s>>>(
+        static_cast<const uint32_t*>(ante), static_cast<const int32_t*>(lengths),
+        static_cast<const uint32_t*>(cons), c, nr, w);
+    cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid((32 * w + kItems - 1) / kItems, (nb + kBaskets - 1) / kBaskets);
-  rule_match_kernel<<<grid, kThreads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(baskets), static_cast<const uint32_t*>(ante),
-      static_cast<const int32_t*>(lengths), static_cast<const uint32_t*>(cons),
-      static_cast<const float*>(scores), static_cast<float*>(out), nb, nr, w);
-  return (int)cudaGetLastError();
+  switch (pick_warps(w)) {
+    case 8: return launch_with<8>(baskets, ante, cons, scores, c, out, nb, nr, w, s);
+    case 4: return launch_with<4>(baskets, ante, cons, scores, c, out, nb, nr, w, s);
+    case 2: return launch_with<2>(baskets, ante, cons, scores, c, out, nb, nr, w, s);
+    default: return launch_with<1>(baskets, ante, cons, scores, c, out, nb, nr, w, s);
+  }
 }

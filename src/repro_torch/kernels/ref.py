@@ -131,6 +131,35 @@ def rule_match_ref(b_packed, a_packed, lengths, c_packed, scores):
     return weights @ cons_dense
 
 
+def rule_match_ordered(b_packed, a_packed, lengths, c_packed, scores):
+    """:func:`rule_match_ref` as K2 sums it, bit for bit: every out[b, i]
+    starts at +0 and adds the matched rules' scores one fp32 add at a time,
+    in ascending rule order.
+
+    Builds the matched weights as :func:`rule_match_ref` does (containment
+    over basket blocks, so the (bn, R, W) intermediate stays bounded), then
+    adds ``w[:, r] * cons_r`` for r ascending over the rules that some
+    basket of the batch matched.  Every product is s_r or 0 exactly, and a
+    rule that no basket matched would add +0 everywhere, so skipping it
+    changes no bit.  One elementwise add per matched rule: slow, a check
+    only.
+    """
+    n, w = b_packed.shape
+    r = a_packed.shape[0]
+    matched = torch.empty((n, r), dtype=torch.bool, device=b_packed.device)
+    block_n = max(1, _BLOCK_ELEMS // max(1, r * w))
+    for n0 in range(0, n, block_n):
+        blk = b_packed[n0 : n0 + block_n]
+        matched[n0 : n0 + block_n] = ((blk[:, None, :] & a_packed[None]) == a_packed[None]).all(dim=-1)
+    matched &= (lengths.to(torch.int32) >= 0)[None, :]
+    weights = matched.to(torch.float32) * scores.to(torch.float32)[None, :]
+    cons_dense = unpack_bits_ref(c_packed, 32 * w)
+    out = torch.zeros((n, 32 * w), dtype=torch.float32, device=b_packed.device)
+    for rule in torch.nonzero(matched.any(dim=0)).flatten().tolist():
+        out += weights[:, rule, None] * cons_dense[rule]
+    return out
+
+
 def rule_match_blocked(b_packed, a_packed, lengths, c_packed, scores, block_n: int = 512):
     """:func:`rule_match_ref` over basket blocks, so the (bn, R, W)
     containment intermediate stays bounded for large batches.  Rows are

@@ -2,8 +2,9 @@
 
 The CUDA source is ``csrc/rule_match.cu`` (it replaces the Pallas kernel
 ``repro/kernels/rule_match.py::rule_match_pallas`` and says what bounds it
-and how).  :func:`launch` takes operands the wrapper in ``kernels/ops.py``
-has already checked; use that wrapper.
+and how).  Its output is bit for bit ``ref.rule_match_ordered``.
+:func:`launch` takes operands the wrapper in ``kernels/ops.py`` has already
+checked; use that wrapper.
 """
 
 from __future__ import annotations
@@ -24,14 +25,14 @@ def launch(b: torch.Tensor, a: torch.Tensor, lengths: torch.Tensor, c: torch.Ten
     lib = _build.library("rule_match")
     if lib.rule_match_smem_bytes(w) > MAX_SMEM:
         raise ValueError(f"rule_match: {w} words per basket need more shared memory than a block has")
-    if -(-nb // 16) > 65535:
-        raise ValueError(f"rule_match: batch of {nb} baskets is too large for one launch")
     out = torch.empty((nb, 32 * w), dtype=torch.float32, device=b.device)
+    # the rulebook's compact rows, rebuilt by the launch's first kernel
+    scratch = torch.empty(lib.rule_match_scratch_bytes(nr), dtype=torch.uint8, device=b.device)
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream(b.device).cuda_stream
         err = lib.rule_match_launch(
             b.data_ptr(), a.data_ptr(), lengths.data_ptr(), c.data_ptr(),
-            scores.data_ptr(), out.data_ptr(), nb, nr, w, stream,
+            scores.data_ptr(), out.data_ptr(), scratch.data_ptr(), nb, nr, w, stream,
         )
     if err:
         raise RuntimeError(f"rule_match launch failed: cudaError {err}")

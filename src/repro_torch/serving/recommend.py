@@ -61,6 +61,16 @@ def make_match_step(*, impl: str = "auto"):
     return match_step
 
 
+def _to_device(blk: np.ndarray, device) -> torch.Tensor:
+    """One batch of int32 basket words onto the rulebook's device (H2D)."""
+    return torch.from_numpy(np.ascontiguousarray(blk)).to(device)
+
+
+def _to_host(idx: torch.Tensor, vals: torch.Tensor, m: int):
+    """The first ``m`` rows of a batch's top-k back to numpy (D2H)."""
+    return idx.cpu().numpy()[:m], vals.cpu().numpy()[:m]
+
+
 def _topk_items(item_scores, b_packed, *, top_k: int, exclude_basket: bool, num_items: int):
     """Mask basket items, then the top_k scores per row with ties broken by
     lowest item id.  Returns (idx int32, vals float32) tensors."""
@@ -116,14 +126,13 @@ def recommend(
         m = blk.shape[0]
         if m < batch_size:
             blk = np.pad(blk, ((0, batch_size - m), (0, 0)))
-        blk_dev = torch.from_numpy(np.ascontiguousarray(blk)).to(rb.device)
+        blk_dev = _to_device(blk, rb.device)
         item_scores = step(blk_dev, rb.ante_packed, rb.ante_len, rb.cons_packed, rb.scores)
         idx, vals = _topk_items(
             item_scores, blk_dev,
             top_k=top_k, exclude_basket=exclude_basket, num_items=rb.num_items,
         )
-        items_out[start : start + m] = idx.cpu().numpy()[:m]
-        scores_out[start : start + m] = vals.cpu().numpy()[:m]
+        items_out[start : start + m], scores_out[start : start + m] = _to_host(idx, vals, m)
     return RecommendResult(items=items_out, scores=scores_out)
 
 

@@ -167,6 +167,94 @@ def test_rule_match_padding_inert(cuda):
     assert torch.count_nonzero(out) == 0
 
 
+# (B, I, R): W = 1, 9, 10, 32 and 35 with R past the kernel's 1,024-rule
+# chunk, then W = 157 and 782, where a block holds 4 baskets and 1
+ORDERED_SHAPES = RULE_SHAPES + [(64, 20, 40), (64, 280, 300), (64, 300, 1030), (1024, 1000, 2500),
+                                (64, 1100, 1030), (16, 5000, 300), (8, 25000, 100)]
+
+
+def _ghost_rows(problem, seed):
+    """Rows with len = -1 that keep their bits and score; every 5th basket zero."""
+    baskets, ante, lengths, cons, scores = problem
+    rng = np.random.default_rng(seed)
+    ghost = rng.choice(np.flatnonzero(lengths >= 0), max(1, len(lengths) // 10), replace=False)
+    lengths[ghost] = -1
+    baskets[::5] = 0
+    return baskets, ante, lengths, cons, scores
+
+
+def _on(problem, dev):
+    return [torch.from_numpy(x).to(dev) if x.dtype != np.uint32 else _words(x, dev) for x in problem]
+
+
+@pytest.mark.parametrize("shape", ORDERED_SHAPES)
+@pytest.mark.parametrize("case", ["random", "padding", "all_match"])
+def test_rule_match_kernel_bit_equal_to_ordered(cuda, shape, case):
+    """K2 returns exactly the bits of ref.rule_match_ordered: the ascending-r
+    fp32 sum, with len = -1 rows holding bits, zero baskets, and baskets
+    holding every item (every real rule matches)."""
+    from repro_torch.kernels import ref
+
+    problem = _rule_problem(shape, seed=sum(shape) + 1)
+    if case == "padding":
+        problem = _ghost_rows(problem, seed=sum(shape))
+    elif case == "all_match":
+        problem = _ghost_rows(problem, seed=sum(shape))
+        problem = (pack_bits(np.ones((problem[0].shape[0], shape[1]), np.int8)),) + problem[1:]
+    args = _on(problem, cuda)
+    before = ops.launch_counts()["rule_match"]
+    got = ops.rule_match(*args)
+    want = ref.rule_match_ordered(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rule_match"] == before + 1
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got, ops.rule_match(*args, impl="ref"), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("shape", [s for s in ORDERED_SHAPES if packed_words(s[1]) > 4])
+def test_rule_match_kernel_wide_rules(cuda, shape):
+    """Rules whose antecedent or consequent holds bits in more than the four
+    words the kernel compacts are read whole from the rulebook: still bit for
+    bit rule_match_ordered."""
+    from repro_torch.kernels import ref
+
+    b, i, r = shape
+    rng = np.random.default_rng(sum(shape))
+    baskets = pack_bits((rng.random((b, i)) < 0.7).astype(np.int8))
+    baskets[::3] = pack_bits(np.ones((1, i), np.int8))
+
+    def sets(lo, hi):
+        return np.stack([itemsets_to_packed(np.sort(rng.choice(i, rng.integers(lo, hi + 1), replace=False))[None], i)[0]
+                         for _ in range(r)])
+
+    ante, cons = np.where((rng.random(r) < 0.5)[:, None], sets(5, 8), sets(1, 3)), sets(1, 8)
+    lengths = np.array([sum(bin(int(x)).count("1") for x in row) for row in ante], np.int32)
+    lengths[rng.random(r) < 0.1] = -1
+    args = _on((baskets, ante, lengths, cons, rng.random(r).astype(np.float32)), cuda)
+    got = ops.rule_match(*args)
+    want = ref.rule_match_ordered(*args)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(want) > 0
+    assert torch.equal(got, want)
+
+
+def test_recommend_rows_independent_of_batch_size(cuda):
+    """recommend at batch 1,024 and at batch 256 gives the same score bits
+    for the same 2,048 baskets."""
+    from repro_torch.core.apriori import AprioriConfig, mine
+    from repro_torch.data.synthetic import QuestConfig, gen_transactions
+    from repro_torch.serving.recommend import recommend
+    from repro_torch.serving.rulebook import compile_rulebook, place_rulebook
+
+    db = gen_transactions(QuestConfig(num_transactions=4000, num_items=200, avg_len=10, seed=7))
+    res = mine(db, AprioriConfig(min_support=0.01, max_k=4, representation="packed"))
+    rb = place_rulebook(compile_rulebook(res, min_confidence=0.2, num_items=200))
+    big = recommend(rb, db[:2048], top_k=10, batch_size=1024)
+    small = recommend(rb, db[:2048], top_k=10, batch_size=256)
+    assert np.array_equal(big.scores.view(np.uint32), small.scores.view(np.uint32))
+    assert np.array_equal(big.items, small.items)
+
+
 def test_chain_through_kernels(cuda):
     from repro_torch.core.apriori import AprioriConfig, mine
     from repro_torch.data.synthetic import QuestConfig, gen_transactions
