@@ -18,7 +18,8 @@ and read just after:
 * ``[main-dense]``: ``mine`` at the default dense bf16 config (K3),
   dict-identical to the packed mine and to the plain dense mine;
 * ``[son]``: ``mine_son`` over 8 partitions, dense (K3 in both phases),
-  dict-identical to the level-wise mine.
+  dict-identical to the level-wise mine, with K3's device time by CUDA
+  events.
 
 Any failed check raises, and the script exits non-zero.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
@@ -338,28 +339,48 @@ def dense_problem(n, i, k, seed):
     return t, c, lengths
 
 
+def k3_exact(ops, dev, t, c, ln, operand_dtype, what):
+    """K3 on (t, c, lengths) with the item axis padded with zero columns to
+    the kernel's width, as the dense placement pads it: exactly equal to its
+    plain version.  Returns the counts."""
+    from repro_torch.kernels import support_count as k3
+
+    i = t.shape[1]
+    dt = k3.DTYPES[operand_dtype][1]
+    pad = ((0, 0), (0, k3.item_width(i) - i))
+    tt = torch.from_numpy(np.pad(t, pad)).to(dev).to(dt)
+    tc = torch.from_numpy(np.pad(c, pad)).to(dev).to(dt)
+    l_ = torch.from_numpy(ln).to(dev)
+    got = ops.support_count(tt, tc, l_, operand_dtype=operand_dtype, impl="kernel")
+    want = ops.support_count(tt, tc, l_, impl="ref")
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"K3 {operand_dtype} {what}: counts differ from the plain version")
+    return got
+
+
 def k3_sweep(ops, dev):
-    """The shapes of tests/test_kernels.py plus one with I > 1,024, both
-    operand dtypes, the item axis padded with zero columns to the kernel's
-    width as the dense placement pads it."""
+    """The shapes of tests/test_kernels.py plus one with I > 1,024, then the
+    kernel's edges: N = 1,000 (a ragged 256-row tile), item axes of 160 and
+    1,120 (not multiples of the 128-byte TMA box), K = 600 (an all-padding
+    tile in the middle, a ragged tail), N = 20,000 (several work units per
+    persistent block) and K = 70,000 (two launch windows); and an empty
+    candidate (len = 0), which counts N.  Both operand dtypes."""
     from repro_torch.kernels import support_count as k3
 
     shapes = [(8, 16, 4), (100, 64, 33), (256, 128, 128), (300, 130, 257), (512, 512, 300),
-              (200, 1100, 70)]
-    for operand_dtype, (_, dt) in k3.DTYPES.items():
+              (200, 1100, 70), (1000, 130, 600), (1000, 1100, 600), (20000, 1000, 3000), (300, 64, 70000)]
+    for operand_dtype in k3.DTYPES:
         for n, i, k in shapes:
-            t, c, ln = dense_problem(n, i, k, seed=n + i + k)
-            pad = ((0, 0), (0, k3.item_width(i) - i))
-            tt = torch.from_numpy(np.pad(t, pad)).to(dev).to(dt)
-            tc = torch.from_numpy(np.pad(c, pad)).to(dev).to(dt)
-            l_ = torch.from_numpy(ln).to(dev)
-            got = ops.support_count(tt, tc, l_, operand_dtype=operand_dtype, impl="kernel")
-            want = ops.support_count(tt, tc, l_, impl="ref")
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"K3 {operand_dtype} {(n, i, k)}: counts differ from the plain version")
+            k3_exact(ops, dev, *dense_problem(n, i, k, seed=n + i + k), operand_dtype, str((n, i, k)))
+        t, c, ln = dense_problem(1000, 130, 600, seed=3)
+        c[5], ln[5] = 0, 0
+        got = k3_exact(ops, dev, t, c, ln, operand_dtype, "with an empty candidate")
+        if int(got[5]) != 1000:
+            raise AssertionError(f"K3 {operand_dtype}: the empty candidate counts {int(got[5])}, not N = 1000")
     log(f"[k3] sweep: {2 * len(shapes)} cases exactly equal to the plain version (bf16 and int8, "
-        "zero rows, len = -1 rows, an all-padding candidate tile)")
+        "zero rows, len = -1 rows, an all-padding candidate tile, ragged row, item and candidate edges, "
+        "two launch windows); an empty candidate counts N in both dtypes")
 
 
 def k3_main_shape(ops, db, cands, k1_counts, dev, card):
@@ -403,10 +424,11 @@ def k3_main_shape(ops, db, cands, k1_counts, dev, card):
             prod()
             torch.cuda.synchronize()
             out["bf16"]["gemm_ms"] = cuda_ms(prod, 3)
-        extra = f", bf16 torch.matmul of the same operands {out['bf16']['gemm_ms']:.3f} ms" \
-            if operand_dtype == "bf16" else ""
-        log(f"[k3] {operand_dtype} N={n} Kp={kp} Ip={ip}: exact, equal to K1's counts; kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.1f} ms{extra}; bound {bound_ms:.4f} ms ({bound_by}: {op_count:.3e} = "
+        gemm_ms = out["bf16"]["gemm_ms"]
+        extra = f", bf16 torch.matmul of the same operands {gemm_ms:.3f} ms" if operand_dtype == "bf16" else ""
+        log(f"[k3] {operand_dtype} N={n} Kp={kp} Ip={ip}: exact, equal to K1's counts; kernel {ms:.3f} ms "
+            f"= {ms / gemm_ms:.3f}x the bare bf16 product's time, plain {plain_ms:.1f} ms{extra}; "
+            f"bound {bound_ms:.4f} ms ({bound_by}: {op_count:.3e} = "
             f"2*N*K*I operations for the {live} real candidates and {num_items} items at "
             f"{TC_RATES[operand_dtype]:.3e}/s, {byte_count:.3e} B) = {op_count / (ms * 1e-3) / 1e12:.1f} "
             f"T op/s achieved; dense-count bound {dense_ops / TC_RATES[operand_dtype] * 1e3:.3f} ms "
@@ -705,22 +727,41 @@ def main() -> int:
         son_seen["union"] = union
         return union
 
+    # K3's device time in the run, by CUDA events around each wrapper call
+    son_events = []
+    count_fn = ops.support_count
+
+    def timed_count(*args, **kwargs):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = count_fn(*args, **kwargs)
+        e1.record()
+        son_events.append((e0, e1))
+        return out
+
     ops.reset_launch_counts()
     son_mod.union_local_winners = phase1_counted
+    ops.support_count = timed_count
     try:
         t0 = time.perf_counter()
         son_res = son_mod.mine_son(db, dense_cfg, device=dev, num_partitions=8)
         son_s = time.perf_counter() - t0
     finally:
         son_mod.union_local_winners = phase1_fn
+        ops.support_count = count_fn
     son_launches = ops.launch_counts()["support_count"]
+    torch.cuda.synchronize()
+    son_k3_ms = sum(e0.elapsed_time(e1) for e0, e1 in son_events)
     phase1 = son_seen["phase1"]
     union_levels = son_mod.winners_to_arrays(son_seen["union"])
     phase2_passes = sum(math.ceil(c.shape[0] / dense_cfg.max_candidates_per_pass) for c in union_levels.values())
     log(f"[son] mine_son over 8 partitions {son_s:.3f} s wall; K3 launched {son_launches} times "
         f"({phase1} in phase 1; {son_launches - phase1} in phase 2 for {phase2_passes} passes over the "
-        f"union's levels { {k: int(c.shape[0]) for k, c in union_levels.items()} }) [{card}]")
-    if phase1 < 8 or son_launches - phase1 != phase2_passes or phase2_passes == 0:
+        f"union's levels { {k: int(c.shape[0]) for k, c in union_levels.items()} }); K3 device time "
+        f"{son_k3_ms:.2f} ms over {len(son_events)} launches = {son_k3_ms / 1e3 / son_s:.4f} of the wall "
+        f"[{card}]")
+    if phase1 < 8 or son_launches - phase1 != phase2_passes or phase2_passes == 0 \
+            or len(son_events) != son_launches:
         raise AssertionError("mine_son did not launch K3 once per pass in both phases")
     if son_res.as_dict() != dense_res.as_dict():
         raise AssertionError("mine_son differs from the level-wise mine")

@@ -16,10 +16,7 @@ from repro_torch.kernels import _build
 
 # operand_dtype -> (the C interface's code, the operands' torch dtype)
 DTYPES = {"bf16": (0, torch.bfloat16), "int8": (1, torch.int8)}
-ITEM_MULTIPLE = 32       # the item axis the kernel takes: 16-byte rows in both types
-ROWS = 128               # transaction rows per tile (csrc kBN)
-CANDIDATES = 128         # candidates per block (csrc kBK)
-TARGET_BLOCKS = 132 * 2 * 4  # two resident blocks on each of the H100's 132 SMs, four waves
+ITEM_MULTIPLE = 32       # the item axis the kernel takes: 16-byte TMA row strides in both types
 
 
 def item_width(num_items: int) -> int:
@@ -27,14 +24,6 @@ def item_width(num_items: int) -> int:
     columns (inert) to :data:`ITEM_MULTIPLE`.  The dense DB placement and
     the candidate placement both take it from here, so they cannot drift."""
     return -(-max(num_items, 1) // ITEM_MULTIPLE) * ITEM_MULTIPLE
-
-
-def splits_for(n: int, k: int) -> int:
-    """Transaction splits (grid.y): enough blocks to fill the card, never a
-    split smaller than one row tile."""
-    k_tiles = max(1, -(-k // CANDIDATES))
-    max_splits = max(1, -(-n // ROWS))
-    return max(1, min(max_splits, -(-TARGET_BLOCKS // k_tiles), 65535))
 
 
 def launch(t: torch.Tensor, c: torch.Tensor, lengths: torch.Tensor, operand_dtype: str) -> torch.Tensor:
@@ -46,11 +35,12 @@ def launch(t: torch.Tensor, c: torch.Tensor, lengths: torch.Tensor, operand_dtyp
     code, _ = DTYPES[operand_dtype]
     out = torch.zeros(k, dtype=torch.int32, device=t.device)
     lib = _build.library("support_count")
+    sms = torch.cuda.get_device_properties(t.device).multi_processor_count  # the persistent grid
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
         err = lib.support_count_launch(
             t.data_ptr(), c.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            n, k, ip, code, splits_for(n, k), stream,
+            n, k, ip, code, sms, stream,
         )
     if err:
         raise RuntimeError(f"support_count launch failed: cudaError {err}")

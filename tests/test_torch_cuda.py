@@ -20,6 +20,11 @@ pytestmark = pytest.mark.gpu
 # case that exercises the kernel's word-chunk loop
 SHAPES = [(8, 16, 4), (100, 64, 33), (256, 128, 128), (300, 130, 257), (512, 512, 300),
           (200, 1100, 70)]
+# K3 adds its edges: N = 1,000 (a ragged 256-row tile), item axes of 160 and
+# 1,120 (not multiples of a 128-byte TMA box), K = 600 (an all-padding tile
+# in the middle, a ragged tail); N = 20,000 gives each persistent block
+# several work units; K = 70,000 takes two launch windows of 65,536.
+DENSE_SHAPES = SHAPES + [(1000, 130, 600), (1000, 1100, 600), (20000, 1000, 3000), (300, 64, 70000)]
 # (B, I, R) of tests/test_rule_match.py
 RULE_SHAPES = [(8, 16, 4), (100, 37, 33), (64, 96, 300), (33, 130, 257), (16, 31, 128)]
 RTOL, ATOL = 1e-5, 1e-6
@@ -78,16 +83,10 @@ def test_support_count_kernel_exact(cuda, shape, mode):
     assert torch.equal(got.cpu(), ops.support_count_packed(t.cpu(), c.cpu(), ln.cpu(), mode=mode))
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("operand_dtype", ["bf16", "int8"])
-def test_dense_support_count_kernel_exact(cuda, shape, operand_dtype):
-    """K3 equals its plain version exactly, with zero rows, len = -1 rows, a
-    whole tile of them where K reaches 256, and the item axis padded to the
-    kernel's width; one launch per call."""
-    from repro_torch.kernels import support_count as k3
-
+def _dense_problem(shape, seed):
+    """Zero rows, len = -1 rows, a whole tile of them where K reaches 256."""
     n, i, k = shape
-    rng = np.random.default_rng(sum(shape))
+    rng = np.random.default_rng(seed)
     t = (rng.random((n, i)) < 0.3).astype(np.int8)
     t[::7] = 0
     c = np.zeros((k, i), np.int8)
@@ -96,11 +95,21 @@ def test_dense_support_count_kernel_exact(cuda, shape, operand_dtype):
     lengths = c.sum(1).astype(np.int32)
     lengths[rng.random(k) < 0.1] = -1
     lengths[128:256] = -1
+    return t, c, lengths
+
+
+def _dense_kernel_exact(dev, t, c, lengths, operand_dtype):
+    """K3 on (t, c, lengths) with the item axis padded to the kernel's width:
+    one launch, exactly the plain version on the card and on the CPU, and
+    K1's counts on the same candidates.  Returns the counts."""
+    from repro_torch.kernels import support_count as k3
+
+    i = t.shape[1]
     _, dt = k3.DTYPES[operand_dtype]
     pad = ((0, 0), (0, k3.item_width(i) - i))
-    tt = torch.from_numpy(np.pad(t, pad)).to(cuda).to(dt)
-    tc = torch.from_numpy(np.pad(c, pad)).to(cuda).to(dt)
-    ln = torch.from_numpy(lengths).to(cuda)
+    tt = torch.from_numpy(np.pad(t, pad)).to(dev).to(dt)
+    tc = torch.from_numpy(np.pad(c, pad)).to(dev).to(dt)
+    ln = torch.from_numpy(lengths).to(dev)
     before = ops.launch_counts()["support_count"]
     got = ops.support_count(tt, tc, ln, operand_dtype=operand_dtype)
     want = ops.support_count(tt, tc, ln, impl="ref")
@@ -110,6 +119,26 @@ def test_dense_support_count_kernel_exact(cuda, shape, operand_dtype):
     assert torch.equal(got.cpu(), ops.support_count(tt.cpu(), tc.cpu(), ln.cpu()))
     packed = ops.support_count_packed(ops.pack_bits_device(tt), ops.pack_bits_device(tc), ln)
     assert torch.equal(got, packed)
+    return got
+
+
+@pytest.mark.parametrize("shape", DENSE_SHAPES)
+@pytest.mark.parametrize("operand_dtype", ["bf16", "int8"])
+def test_dense_support_count_kernel_exact(cuda, shape, operand_dtype):
+    """K3 equals its plain version and K1 exactly, with zero rows, len = -1
+    rows, a whole tile of them where K reaches 256, and the item axis padded
+    to the kernel's width; one launch per call."""
+    _dense_kernel_exact(cuda, *_dense_problem(shape, seed=sum(shape)), operand_dtype)
+
+
+@pytest.mark.parametrize("operand_dtype", ["bf16", "int8"])
+def test_dense_kernel_empty_candidate_counts_n(cuda, operand_dtype):
+    """A candidate with no items and len = 0 counts N: no zero-filled tile
+    row past N adds to it."""
+    t, c, lengths = _dense_problem((1000, 130, 600), seed=3)
+    c[5], lengths[5] = 0, 0
+    got = _dense_kernel_exact(cuda, t, c, lengths, operand_dtype)
+    assert int(got[5]) == 1000
 
 
 def test_dense_kernel_takes_placed_operands_only(cuda):

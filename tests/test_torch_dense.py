@@ -21,6 +21,7 @@ from repro_torch.core import apriori as tapr  # noqa: E402
 from repro_torch.core import itemsets as tenc  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import support_count as k3  # noqa: E402
 
 from conftest import random_problem  # noqa: E402
 from test_kernels import SHAPES  # noqa: E402
@@ -79,6 +80,60 @@ def test_support_count_padding_inert(operand_dtype):
     allpad = tops.support_count(_dense(t, operand_dtype), _dense(zeros, operand_dtype),
                                 torch.full((12,), -1, dtype=torch.int32), **kw)
     np.testing.assert_array_equal(allpad.numpy(), 0)
+
+
+# (N, I, K) at the card kernel's edges: N = 1,000 spans four 256-row tiles and
+# is a multiple of neither 64 nor 128; I = 130 and 1,100 give item axes of
+# 160 and 1,120, not multiples of a 128-byte TMA box; K = 600 holds a whole
+# 128-candidate tile of padding rows (still holding bits) in the middle and a
+# ragged tail tile.  The card tests hold the kernel to these plain versions.
+EDGE_SHAPES = [(1000, 130, 600), (1000, 1100, 600)]
+
+
+def _edge_problem(n, i, k, seed):
+    t, c, lengths = random_problem(n, i, k, seed=seed)
+    t[::7] = 0
+    lengths[128:256] = -1
+    return t, c, lengths
+
+
+def _placed(x, num_items, operand_dtype):
+    """x with the item axis padded by zero columns to the kernel's width, in
+    the operand dtype, as ``place_db`` and the candidate placement hand it
+    over."""
+    return _dense(np.pad(x, ((0, 0), (0, k3.item_width(num_items) - num_items))), operand_dtype)
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+@pytest.mark.parametrize("operand_dtype", ["bf16", "int8"])
+def test_support_count_plain_matches_jax_at_kernel_edges(shape, operand_dtype):
+    n, i, k = shape
+    t, c, lengths = _edge_problem(n, i, k, seed=sum(shape))
+    jt, jc, jl = jnp.asarray(t), jnp.asarray(c), jnp.asarray(lengths)
+    want = np.asarray(jops.support_count(jt, jc, jl, impl="jnp"))
+    pallas = np.asarray(jops.support_count(jt, jc, jl, impl="pallas_interpret", operand_dtype=operand_dtype,
+                                           block_n=128, block_k=128, block_i=128))
+    np.testing.assert_array_equal(pallas, want)
+    assert not want[128:256].any() and want.any()
+    assert k3.item_width(i) == {130: 160, 1100: 1120}[i]
+    tt, tc, tl = _placed(t, i, operand_dtype), _placed(c, i, operand_dtype), torch.from_numpy(lengths)
+    np.testing.assert_array_equal(tops.support_count(tt, tc, tl, operand_dtype=operand_dtype).numpy(), want)
+    np.testing.assert_array_equal(tref.support_count_ref(tt, tc, tl).numpy(), want)
+
+
+@pytest.mark.parametrize("operand_dtype", ["bf16", "int8"])
+def test_support_count_empty_candidate_counts_n(operand_dtype):
+    """A candidate with no items and len = 0 is contained in every row, the
+    zero rows included: it counts N, and no row past N (the kernel's
+    zero-filled tile rows) may add to it."""
+    n, i, k = EDGE_SHAPES[0]
+    t, c, lengths = _edge_problem(n, i, k, seed=3)
+    c[5], lengths[5] = 0, 0
+    want = np.asarray(jops.support_count(jnp.asarray(t), jnp.asarray(c), jnp.asarray(lengths), impl="jnp"))
+    assert want[5] == n
+    got = tops.support_count(_placed(t, i, operand_dtype), _placed(c, i, operand_dtype),
+                             torch.from_numpy(lengths), operand_dtype=operand_dtype)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("shape", SHAPES[:4])
