@@ -4,10 +4,12 @@
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, holds each
 against its plain PyTorch version on the card (K1 packed and K3 dense
-support counting exactly, K3 in both operand dtypes and against K1's counts;
+support counting exactly, K1 also on its edges, over row slabs and against
+its plain bitmap count, K3 in both operand dtypes and against K1's counts;
 K2 rule matching within rtol=1e-5, atol=1e-6 of the plain version and bit
 for bit equal to ``ref.rule_match_ordered``, its ordered-sum contract, also
-on a batch where every rule matches), times them, then drives three paths
+on a batch where every rule matches and, ``[k2-wide]``, on rulebooks of
+42,528 and 70,000 items), times them, then drives three paths
 through the port's entry points at the
 FIMI T10I4D100K shape, each with the launch counts set to 0 just before it
 and read just after:
@@ -54,6 +56,11 @@ INT8_TC_OP_PER_S = 1979e12
 TC_RATES = {"bf16": BF16_TC_FLOP_PER_S, "int8": INT8_TC_OP_PER_S}
 
 RTOL, ATOL = 1e-5, 1e-6
+# The row-layout K1 that the item bitmaps replaced (one candidate per
+# thread, every word tested; commit ffc206a and before) at the level-2
+# pass, ms: the range of PERF.md's K1 row (H100 80GB HBM3, 700 W), printed
+# beside this run's time
+ROW_LAYOUT_K1_MS = {"and_cmp": (17.421, 17.596), "popcount": (53.493, 54.160)}
 
 
 def log(msg: str) -> None:
@@ -139,7 +146,39 @@ def rule_problem(b, i, r, seed):
 
 
 # -------------------------------------------------------------- phases -------
+def k1_edge_problem(n, seed):
+    """K1's edges over 1,300 items (41 words) and n rows: 96 candidates, two
+    of them empty (len 0 and len 3), the rest of 1, 4, 9, 40, 2 or 3 items
+    taken from one row's items; every 7th len = -1 keeping its bits, every
+    5th / 6th / 11th a length one below / one above its item count / 0
+    (popcount counts the rows holding exactly that many of its items).
+    The card tests, the CPU tests and tools/k1_variants.py take it from here."""
+    from repro_torch.core.itemsets import pack_bits
+
+    rng = np.random.default_rng(seed)
+    i = 1300
+    t = (rng.random((n, i)) < 0.3).astype(np.int8)
+    sizes = [1, 4, 9, 40, 2, 3]
+    c = np.zeros((96, i), np.int8)
+    for row in range(2, 96):
+        held = np.flatnonzero(t[rng.integers(n)])
+        c[row, rng.choice(held, size=min(sizes[row % 6], held.size), replace=False)] = 1
+    lengths = c.sum(1).astype(np.int32)
+    lengths[1] = 3
+    lengths[5::5] = np.maximum(lengths[5::5] - 1, 0)
+    lengths[6::6] += 1
+    lengths[11::11] = 0
+    lengths[7::7] = -1
+    return pack_bits(t), pack_bits(c), lengths
+
+
 def k1_sweep(ops, dev):
+    """The sweep shapes, then K1's edges (N = 1, 77, 1,000) against the
+    plain row-layout version and the plain bitmap count, then 4,100 rows
+    through 5 row slabs of a capped scratch; both modes."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import support_count_packed as k1
+
     shapes = [(8, 16, 4), (100, 64, 33), (256, 128, 128), (300, 130, 257), (512, 512, 300),
               (200, 1100, 70)]
     for mode in ("and_cmp", "popcount"):
@@ -151,13 +190,37 @@ def k1_sweep(ops, dev):
             torch.cuda.synchronize()
             if not torch.equal(got, want):
                 raise AssertionError(f"K1 {mode} {(n, i, k)}: counts differ from the plain version")
-    log(f"[k1] sweep: {2 * len(shapes)} cases exactly equal to the plain version (both modes)")
+        for n in (1, 77, 1000):
+            tp, cp, ln = k1_edge_problem(n, seed=n)
+            t, c, l_ = words(tp, dev), words(cp, dev), torch.from_numpy(ln).to(dev)
+            got = ops.support_count_packed(t, c, l_, mode=mode, impl="kernel")
+            want = ops.support_count_packed(t, c, l_, mode=mode, impl="ref")
+            bitmap = ref.support_count_bitmaps(ref.item_bitmaps(t), c, l_, n, mode)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, want) and torch.equal(got, bitmap)):
+                raise AssertionError(f"K1 {mode} edges at N={n}: counts differ from the plain versions")
+            if int(got[0]) != n or int(got[1]) != (n if mode == "and_cmp" else 0):
+                raise AssertionError(f"K1 {mode} edges at N={n}: empty candidates count {got[:2].tolist()}")
+        tp, cp, ln = k1_edge_problem(4100, seed=4)
+        t, c, l_ = words(tp, dev), words(cp, dev), torch.from_numpy(ln).to(dev)
+        cap, k1.SCRATCH_CAP = k1.SCRATCH_CAP, 128 * t.shape[1] * 32  # one slab of 1,024 rows
+        try:
+            got = k1.launch(t, c, l_, mode)
+        finally:
+            k1.SCRATCH_CAP = cap
+        if not torch.equal(got, ops.support_count_packed(t, c, l_, mode=mode, impl="ref")):
+            raise AssertionError(f"K1 {mode} over 5 row slabs: counts differ from the plain version")
+    log(f"[k1] sweep: {2 * len(shapes)} cases exactly equal to the plain version (both modes); edges "
+        "(N = 1, 77, 1000; empty candidates with len 0 and 3, len = -1 rows keeping bits, 1, 4, 9 and "
+        "40 items, popcount lengths below and above the item count) exactly equal to the plain version "
+        "and the plain bitmap count; 4,100 rows over 5 row slabs exact")
 
 
 def k1_main_shape(ops, t_dev, cands, num_items, dev, card):
     """K1 at the main path's level-2 pass: the DB against the level-2
     candidates padded to their bucket, both modes, timed."""
     from repro_torch.core.itemsets import itemsets_to_packed
+    from repro_torch.kernels import ref
 
     kp = 1
     while kp < max(256, cands.shape[0]):
@@ -181,15 +244,25 @@ def k1_main_shape(ops, t_dev, cands, num_items, dev, card):
             kernel_reps=5,
         )
         dense_tests = n * kp * w
-        needed_tests = n * int(((c != 0).sum(1) * (l_ >= 0)).sum().item())
+        live = l_ >= 0
+        needed_tests = n * int(((c != 0).sum(1) * live).sum().item())
+        # the bitmap count: an AND per candidate item per 32 rows, and a
+        # popc (a quarter of the int32 rate) per candidate per 32 rows
+        nb = -(-n // 32)
+        items = int((ref.popcount32(c).sum(1) * live).sum().item())
+        bitmap_ops = items * nb + 4 * int(live.sum().item()) * nb
         byte_count = 4 * (n * w + kp * w + kp + kp)
-        bound_ms, bound_by = bound(byte_count, needed_tests / INT32_OP_PER_S * 1e3)
+        bound_ms, bound_by = bound(byte_count, bitmap_ops / INT32_OP_PER_S * 1e3)
         out[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                          max_abs_err=float((got - want).abs().max().item()))
-        log(f"[k1] {mode} N={n} Kp={kp} W={w}: exact; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; "
-            f"bound {bound_ms:.4f} ms ({needed_tests:.3e} word tests on candidate words that hold "
-            f"a bit, at {INT32_OP_PER_S:.3e} int32 op/s); dense-count bound "
-            f"{dense_tests / INT32_OP_PER_S * 1e3:.3f} ms ({dense_tests:.3e} = N*Kp*W word tests) [{card}]")
+        lo, hi = ROW_LAYOUT_K1_MS[mode]
+        log(f"[k1] {mode} N={n} Kp={kp} W={w}: exact; kernel {ms:.3f} ms (the row-layout design {lo}-{hi} ms in "
+            f"PERF.md: {lo / ms:.1f}x), plain {plain_ms:.1f} ms; bitmap bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{items * nb:.3e} item-word ANDs and {int(live.sum().item()) * nb:.3e} popc, 4 op each, over {nb} "
+            f"bitmap words at {INT32_OP_PER_S:.3e} int32 op/s, {byte_count:.3e} B); word-test bound "
+            f"{needed_tests / INT32_OP_PER_S * 1e3:.4f} ms ({needed_tests:.3e} word tests on candidate words "
+            f"that hold a bit); dense-count bound {dense_tests / INT32_OP_PER_S * 1e3:.3f} ms "
+            f"({dense_tests:.3e} = N*Kp*W word tests) [{card}]")
     return out, got   # the counts, the same in both modes
 
 
@@ -261,6 +334,24 @@ def k2_sweep(ops, dev):
     log(f"[k2] sweep: {len(shapes)} shapes within rtol={RTOL} atol={ATOL}, bit-identical across runs "
         "and to rule_match_ordered (torch.equal); all-padding rules, zero baskets, len = -1 rows "
         "holding bits and rules wider than four words likewise, the padding inert")
+
+
+def k2_wide(ops, dev, card):
+    """K2 past the width one block held before its item windows (F4): 8
+    baskets over 42,528 and 70,000 items (1,329 and 2,188 words, the second
+    with item ids past 65,535, kept in far slots), and over 1,500,000
+    items (46,875 words, 733 windows),
+    against 300 rules, bit for bit ``rule_match_ordered``; timed."""
+    for i in (42_528, 70_000, 1_500_000):
+        bk, a, ln, c, s = rule_problem(8, i, 300, seed=i)
+        args = (words(bk, dev), words(a, dev), torch.from_numpy(ln).to(dev), words(c, dev),
+                torch.from_numpy(s).to(dev))
+        got, _ = k2_check(ops, args, f"(8, {i}, 300)", num_items=i)
+        far = int((words(a, dev)[:, 2048:] != 0).any(1).sum().item()) if a.shape[1] > 2048 else 0
+        ms = cuda_ms(lambda: ops.rule_match(*args, impl="kernel"), 5)
+        log(f"[k2-wide] B=8 I={i} W={a.shape[1]} R=300: within rtol={RTOL} atol={ATOL} of the plain "
+            f"version, bit-identical across runs and to rule_match_ordered; {far} antecedents hold an item "
+            f"past 65,535 (far slots), {int(torch.count_nonzero(got).item())} non-zero scores; kernel {ms:.4f} ms [{card}]")
 
 
 def k2_main_shape(ops, rb, b_words, dev, card):
@@ -621,6 +712,7 @@ def main() -> int:
     # ---- kernel phases: sweeps
     k1_sweep(ops, dev)
     k2_sweep(ops, dev)
+    k2_wide(ops, dev, card)
     k3_sweep(ops, dev)
 
     # ---- the main path's data: FIMI T10I4D100K shape from the Quest generator

@@ -102,15 +102,16 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if name == "support_count_packed":
         fn = lib.support_count_packed_launch
-        fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
         fn.restype = i32
+        lib.support_count_packed_scratch_bytes.argtypes = [i32, i32, i32]
+        lib.support_count_packed_scratch_bytes.restype = ctypes.c_longlong
     elif name == "rule_match":
         fn = lib.rule_match_launch
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
         fn.restype = i32
-        for size_fn in (lib.rule_match_smem_bytes, lib.rule_match_scratch_bytes):
-            size_fn.argtypes = [i32]
-            size_fn.restype = ctypes.c_longlong
+        lib.rule_match_scratch_bytes.argtypes = [i32]
+        lib.rule_match_scratch_bytes.restype = ctypes.c_longlong
     elif name == "support_count":
         fn = lib.support_count_launch
         fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]

@@ -26,13 +26,19 @@
 // fan-out, or skipping 32-rule chunks where nothing matched (a 16 x 32 chunk
 // holds about 9 matches), does 10^4 times the needed work, so the work is
 // sparse per basket and ordered:
-//   * compact_rules_kernel, once per launch, one thread per rule: the item
+//   * compact_rules_kernel, once per launch, one warp per rule: the item
 //     ids of the antecedent and of the consequent, kMaxItems slots of each
 //     (four uint16 in 8 bytes), the unused slots repeating the first item.
 //     Rows with len < 0 are marked dead; a side with more than kMaxItems
-//     items is marked wide and read whole from the rulebook where it is used;
-//   * rule_match_kernel: a block owns kWarps baskets, one warp each, staged
-//     in shared memory, and walks R in ascending chunks of kChunk rules.
+//     items is marked wide and read whole from the rulebook where it is
+//     used.  A side holding an item id past 65,535, which a uint16 slot
+//     cannot hold, is marked far and keeps its ids whole in far slots (four
+//     uint32), read beside the wide sides on the rare path; so the compact
+//     rows staged per chunk keep 8 bytes a side at every width, and a
+//     rulebook over millions of items (FIMI's webdocs has 5,267,656) is
+//     not read whole;
+//   * rule_match_kernel: a block owns kWarps baskets, one warp each, and
+//     walks R in ascending chunks of kChunk rules.
 //     Each chunk's slots, counts and scores are copied into shared memory
 //     with cp.async while the block works on the chunk before (two buffers);
 //   * match: lane l of a basket's warp tests rules g + l, g + 32 + l, ... on
@@ -52,13 +58,22 @@
 //     holding a consequent wider than the slots goes rule by rule instead.
 //     The row is carried across chunks;
 //   * the row is written to out once, coalesced, at the end.
-// Ragged B, R and any W whose block fits in shared memory (fewer baskets per
-// block above 122 words, at most 1,328 words) are masked here.  The
-// kernels allocate nothing (the wrapper passes the scratch) and launch on
-// the caller's stream.
+// Any W: a block holds the row of one window of at most kWindow words
+// (2,048 items), and the grid has one block per (basket group, window).
+// Each block matches its baskets against every rule, because a match needs
+// the whole antecedent, and fans out only the consequent items in its
+// window, so each (basket, item) sum is still the same chain of adds in
+// ascending r.  Up to kWindow words there is one window, the window test
+// compiles out and the baskets' words are staged in shared memory
+// (kTiled = false); above it the baskets' words are read from global
+// memory, and the far slots keep the match of a rule independent of W.
+// Ragged B, R and W are masked here; 32·W must fit in an int.  The kernels
+// allocate nothing (the wrapper passes the scratch) and launch on the
+// caller's stream.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -69,15 +84,20 @@ constexpr int kUnroll = 4;         // 32-rule groups tested together
 constexpr int kRowStride = 33;     // floats per word in a row: 32 items + 1 pad
 constexpr int kQueue = 32 * kMaxItems;  // queue entries a lane may get from 32 rules
 constexpr int kBatch = 4;          // fan-out reads issued before their writes
-constexpr int kMaxWords = 2048;    // item ids fit in uint16
+constexpr int kWindow = 64;        // words of the basket row one block holds
+constexpr int kWarps = 8;          // baskets a block, one warp each
 constexpr int kDead = -1;          // len < 0: never matches
 constexpr int kWide = kMaxItems + 1;  // more than kMaxItems items
-constexpr long long kMaxSmem = 227 * 1024;
+constexpr int kFar = 8;            // + the item count: an id past 65,535, kept whole in the far slots
 
-// The compact rules' scratch, one entry per rule: the item slots of the
-// antecedents, of the consequents, then the item counts, each count array
-// padded to 16 rules so that it is copied 4 bytes at a time.
+// The compact rules' scratch, one entry per rule: the far slots of the
+// antecedents and of the consequents (read only for a side coded
+// kFar + n), the item slots of the antecedents, of the consequents, then
+// the item counts, each count array padded to 16 rules so that it is
+// copied 4 bytes at a time.
 struct Compact {
+  uint4* af;
+  uint4* cf;
   uint2* ai;
   uint2* ci;
   signed char* an;
@@ -86,30 +106,28 @@ struct Compact {
 
 long long padded(int nr) { return (nr + 15LL) / 16 * 16; }
 
-long long scratch_bytes(int nr) { return 16LL * nr + 2 * padded(nr); }
+long long scratch_bytes(int nr) { return 48LL * nr + 2 * padded(nr); }
 
 Compact carve(void* scratch, int nr) {
   Compact c;
-  c.ai = static_cast<uint2*>(scratch);
+  c.af = static_cast<uint4*>(scratch);
+  c.cf = c.af + nr;
+  c.ai = reinterpret_cast<uint2*>(c.cf + nr);
   c.ci = c.ai + nr;
   c.an = reinterpret_cast<signed char*>(c.ci + nr);
   c.cn = c.an + padded(nr);
   return c;
 }
 
-// Dynamic shared memory of one block of `warps` baskets for w words: two
-// staged chunks (slots, scores), the baskets' rows and words, their fan-out
-// item lists and queue counts, match lists, the two chunks' item counts and
-// the lanes' fan-out queues.
-long long smem_bytes(int warps, int w) {
+// Dynamic shared memory of one block holding a row of wt words and
+// `staged` words of each basket: two staged chunks (slots, scores), the
+// baskets' rows and words, their fan-out item lists and queue counts, match
+// lists, the two chunks' item counts and the lanes' fan-out queues.  At
+// most 165 KB (wt = staged = kWindow).
+long long smem_bytes(int wt, int staged) {
   return 2 * (8LL * 2 * kChunk + 4LL * kChunk + 2LL * kChunk) +
-         4LL * warps * (w * (kRowStride + 1) + kQueue + 32) + 2LL * warps * kChunk + (long long)warps * kQueue * 32;
-}
-
-int pick_warps(int w) {
-  for (int warps = 8; warps > 1; warps /= 2)
-    if (smem_bytes(warps, w) <= kMaxSmem) return warps;
-  return 1;
+         4LL * kWarps * ((long long)wt * kRowStride + staged + kQueue + 32) + 2LL * kWarps * kChunk +
+         (long long)kWarps * kQueue * 32;
 }
 
 __device__ __forceinline__ uint32_t slot(uint2 s, int k) {
@@ -117,70 +135,119 @@ __device__ __forceinline__ uint32_t slot(uint2 s, int k) {
   return (k & 1) ? half >> 16 : half & 0xffffu;
 }
 
-// The item ids of one row in kMaxItems slots, the unused ones repeating the
-// first.  Returns their count, or kWide when there are more.
-__device__ int compact_row(const uint32_t* __restrict__ row, int w, uint2* slots) {
+// The item ids of one row in kMaxItems uint16 slots and in kMaxItems
+// uint32 far slots, the unused ones repeating the first, found by one warp:
+// its lanes read the row 32 words at a time (x0: this lane's word of the
+// first 32, already loaded), and the warp takes the words that hold a bit
+// in order, from a ballot, until it has more than kMaxItems items.
+// Returns, in every lane, their count n, kFar + n when one of them does not
+// fit a uint16 slot (an id past 65,535), or kWide when there are more than
+// kMaxItems.
+__device__ int compact_row(const uint32_t* __restrict__ row, int w, int lane, uint32_t x0, uint2* slots,
+                           uint4* far_slots) {
   uint32_t it[kMaxItems] = {0u, 0u, 0u, 0u};
   int n = 0;
-  auto keep = [&](uint32_t x, int j) {
-    for (; x; x &= x - 1u) {
-      const uint32_t item = 32u * j + (__ffs(x) - 1);
+  for (int j0 = 0; j0 < w && n <= kMaxItems; j0 += 32) {
+    const int j = j0 + lane;
+    const uint32_t x = j0 == 0 ? x0 : j < w ? __ldg(row + j) : 0u;
+    for (unsigned nz = __ballot_sync(0xffffffffu, x != 0u); nz && n <= kMaxItems; nz &= nz - 1u) {
+      const int src = __ffs(nz) - 1;
+      for (uint32_t y = __shfl_sync(0xffffffffu, x, src); y; y &= y - 1u) {
+        const uint32_t item = 32u * (j0 + src) + (__ffs(y) - 1);
 #pragma unroll
-      for (int k = 0; k < kMaxItems; ++k)
-        if (k == n) it[k] = item;
-      ++n;
+        for (int k = 0; k < kMaxItems; ++k)
+          if (k == n) it[k] = item;
+        ++n;
+      }
     }
-  };
-  if ((w & 3) == 0) {
-    const uint4* r4 = reinterpret_cast<const uint4*>(row);
-#pragma unroll 8
-    for (int q = 0; q < w / 4; ++q) {
-      const uint4 v = __ldg(r4 + q);
-      keep(v.x, 4 * q);
-      keep(v.y, 4 * q + 1);
-      keep(v.z, 4 * q + 2);
-      keep(v.w, 4 * q + 3);
-    }
-  } else {
-    for (int q = 0; q < w; ++q) keep(__ldg(row + q), q);
   }
+  bool far = false;
+#pragma unroll
+  for (int k = 0; k < kMaxItems; ++k) far |= it[k] > 0xffffu;
 #pragma unroll
   for (int k = 1; k < kMaxItems; ++k)
     if (k >= n) it[k] = it[0];
-  *slots = make_uint2(it[0] | (it[1] << 16), it[2] | (it[3] << 16));
-  return n > kMaxItems ? kWide : n;
+  if (lane == 0) {
+    *slots = make_uint2((it[0] & 0xffffu) | (it[1] << 16), (it[2] & 0xffffu) | (it[3] << 16));
+    *far_slots = make_uint4(it[0], it[1], it[2], it[3]);
+  }
+  return n > kMaxItems ? kWide : (far ? kFar + n : n);
 }
 
+// One warp per rule; the length and both rows' first words load together.
 __global__ void compact_rules_kernel(const uint32_t* __restrict__ ante,
                                      const int32_t* __restrict__ lengths,
                                      const uint32_t* __restrict__ cons, Compact c, int nr, int w) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
   if (r >= nr) return;
-  if (lengths[r] < 0) {
-    c.an[r] = (signed char)kDead;
-    c.cn[r] = 0;
-    c.ai[r] = c.ci[r] = make_uint2(0u, 0u);
+  const uint32_t* a = ante + (size_t)r * w;
+  const uint32_t* cr = cons + (size_t)r * w;
+  const int len = lengths[r];
+  const uint32_t a0 = lane < w ? __ldg(a + lane) : 0u;
+  const uint32_t c0 = lane < w ? __ldg(cr + lane) : 0u;
+  if (len < 0) {
+    if (lane == 0) {
+      c.an[r] = (signed char)kDead;
+      c.cn[r] = 0;
+      c.ai[r] = c.ci[r] = make_uint2(0u, 0u);
+    }
     return;
   }
-  c.an[r] = (signed char)compact_row(ante + (size_t)r * w, w, c.ai + r);
-  c.cn[r] = (signed char)compact_row(cons + (size_t)r * w, w, c.ci + r);
+  const int an = compact_row(a, w, lane, a0, c.ai + r, c.af + r);
+  const int cn = compact_row(cr, w, lane, c0, c.ci + r, c.cf + r);
+  if (lane == 0) {
+    c.an[r] = (signed char)an;
+    c.cn[r] = (signed char)cn;
+  }
 }
 
-template <int kWarps>
+// The match of the antecedents the uint16 slots do not hold, for rules
+// g + 32q + lane of a chunk (rare, so kept out of line): a far one tests
+// its far slots; the warp tests each wide one's words, 32 at a time, until
+// one misses.  ok: bit q for rule g + 32q + lane; returned updated.
+__device__ __noinline__ unsigned match_rare(unsigned ok, const uint32_t* bk, const signed char* an_s,
+                                            const uint4* af, const uint32_t* ante, int r0, int g, int n,
+                                            int w, int lane) {
+  auto has = [&](uint32_t item) { return (bk[item >> 5] >> (item & 31u)) & 1u; };
+  for (int q = 0; q < kUnroll; ++q) {
+    const int lq = g + 32 * q;
+    const int an = lq + lane < n ? an_s[lq + lane] : kDead;
+    if (an > kFar) {
+      const uint4 f = af[r0 + lq + lane];
+      ok = (ok & ~(1u << q)) | ((has(f.x) & has(f.y) & has(f.z) & has(f.w)) << q);
+    }
+    for (unsigned todo = __ballot_sync(0xffffffffu, an == kWide); todo; todo &= todo - 1u) {
+      const int src = __ffs(todo) - 1;
+      const uint32_t* a = ante + (size_t)(r0 + lq + src) * w;
+      bool hit = true;
+      for (int k0 = 0; k0 < w && hit; k0 += 32) {
+        const int k = k0 + lane;
+        const uint32_t x = k < w ? __ldg(a + k) : 0u;
+        hit = __all_sync(0xffffffffu, (bk[k < w ? k : 0] & x) == x);
+      }
+      if (lane == src) ok = (ok & ~(1u << q)) | ((unsigned)hit << q);
+    }
+  }
+  return ok;
+}
+
+template <bool kTiled>
 __global__ void __launch_bounds__(32 * kWarps)
 rule_match_kernel(const uint32_t* __restrict__ baskets,
                   const uint32_t* __restrict__ ante,
                   const uint32_t* __restrict__ cons,
                   const float* __restrict__ scores, const Compact c,
-                  float* __restrict__ out, int nb, int nr, int w) {
+                  float* __restrict__ out, int nb, int nr, int w, int wt) {
   constexpr int kThreads = 32 * kWarps;
   extern __shared__ __align__(16) unsigned char smem[];
+  const int sw = kTiled ? 0 : w;  // basket words staged per warp
   uint2* ai_b = reinterpret_cast<uint2*>(smem);                                  // [2][kChunk]
   uint2* ci_b = ai_b + 2 * kChunk;                                               // [2][kChunk]
   float* score_b = reinterpret_cast<float*>(ci_b + 2 * kChunk);                  // [2][kChunk]
-  float* row_s = score_b + 2 * kChunk;                                           // [kWarps][w][kRowStride]
-  uint32_t* bsk_s = reinterpret_cast<uint32_t*>(row_s + (size_t)kWarps * w * kRowStride);  // [kWarps][w]
-  uint32_t* item_s = bsk_s + kWarps * w;                                         // [kWarps][kQueue]
+  float* row_s = score_b + 2 * kChunk;                                           // [kWarps][wt][kRowStride]
+  uint32_t* bsk_s = reinterpret_cast<uint32_t*>(row_s + (size_t)kWarps * wt * kRowStride);  // [kWarps][sw]
+  uint32_t* item_s = bsk_s + (size_t)kWarps * sw;                                // [kWarps][kQueue]
   int* count_s = reinterpret_cast<int*>(item_s + kWarps * kQueue);               // [kWarps][32]
   uint16_t* list_s = reinterpret_cast<uint16_t*>(count_s + kWarps * 32);        // [kWarps][kChunk]
   signed char* an_b = reinterpret_cast<signed char*>(list_s + kWarps * kChunk);  // [2][kChunk]
@@ -188,23 +255,31 @@ rule_match_kernel(const uint32_t* __restrict__ baskets,
   uint8_t* queue_s = reinterpret_cast<uint8_t*>(cn_b + 2 * kChunk);              // [kWarps][kQueue][32]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int b0 = blockIdx.x * kWarps;
+  // blocks walk the basket groups of window 0, then of window 1, ...
+  const int groups = (nb + kWarps - 1) / kWarps;
+  const int b0 = (blockIdx.x % groups) * kWarps;
+  const int w0 = kTiled ? (blockIdx.x / groups) * wt : 0;  // the window's first word
+  const int wn = kTiled ? min(wt, w - w0) : w;              // its words
   const bool live = b0 + warp < nb;
   const unsigned below = (1u << lane) - 1u;  // lanes before this one
 
-  for (int idx = tid; idx < kWarps * w; idx += kThreads)  // bsk_s: [kWarps][w]
+  for (int idx = tid; idx < kWarps * sw; idx += kThreads)  // bsk_s: [kWarps][w]
     bsk_s[idx] = (b0 + idx / w < nb) ? baskets[(size_t)b0 * w + idx] : 0u;
-  for (int idx = tid; idx < kWarps * w * kRowStride; idx += kThreads) row_s[idx] = 0.0f;
+  for (int idx = tid; idx < kWarps * wt * kRowStride; idx += kThreads) row_s[idx] = 0.0f;
   for (int idx = tid; idx < kWarps * 32; idx += kThreads) count_s[idx] = 0;
 
-  const uint32_t* bk = bsk_s + warp * w;
-  float* row = row_s + (size_t)warp * w * kRowStride;
+  // the basket's words: staged in shared memory (known to the compiler as
+  // such) at one window, else in global memory
+  const uint32_t* bk = kTiled ? baskets + (live ? (size_t)(b0 + warp) * w : 0) : bsk_s + (size_t)warp * w;
+  float* row = row_s + (size_t)warp * wt * kRowStride;
   uint16_t* list = list_s + warp * kChunk;
   uint8_t* queue_w = queue_s + warp * kQueue * 32;       // [kQueue][32 lanes]
   uint8_t* queue = queue_w + lane;                        // this lane's entry q at queue[32 * q]
   int* counts = count_s + warp * 32;
   uint32_t* items = item_s + warp * kQueue;
   auto has = [&](uint32_t item) { return (bk[item >> 5] >> (item & 31u)) & 1u; };
+  // whether an item falls in this block's window
+  auto mine = [&](uint32_t item) { return !kTiled || (item >> 5) - (uint32_t)w0 < (uint32_t)wn; };
 
   // cp.async of chunk r0 into buffer `buf`; the counts go 4 rules at a time
   auto stage = [&](int r0, int buf) {
@@ -239,7 +314,7 @@ rule_match_kernel(const uint32_t* __restrict__ baskets,
     // match: the chunk's hits for this warp's basket, as ascending rule ids
     int cnt = 0;
     for (int g = 0; g < n; g += 32 * kUnroll) {
-      bool ok[kUnroll];
+      unsigned ok = 0u;  // bit q: rule g + 32q + lane matches
       bool wide = false;
 #pragma unroll
       for (int q = 0; q < kUnroll; ++q) {
@@ -248,72 +323,73 @@ rule_match_kernel(const uint32_t* __restrict__ baskets,
         const int an = in ? an_s[lr] : kDead;
         const uint2 a = in ? ai_s[lr] : make_uint2(0u, 0u);
         const uint32_t all = has(slot(a, 0)) & has(slot(a, 1)) & has(slot(a, 2)) & has(slot(a, 3));
-        ok[q] = (an == 0) | ((an > 0) & (an <= kMaxItems) & (all != 0u));
-        wide |= an == kWide;
+        ok |= (unsigned)((an == 0) | ((an > 0) & (an <= kMaxItems) & (all != 0u))) << q;
+        wide |= an >= kWide;
       }
-      if (__any_sync(0xffffffffu, wide)) {  // antecedents wider than the slots: rare
-#pragma unroll
-        for (int q = 0; q < kUnroll; ++q) {
-          const int lr = g + 32 * q + lane;
-          if (lr < n && an_s[lr] == kWide) {
-            const uint32_t* a = ante + (size_t)(r0 + lr) * w;
-            bool hit = true;
-            for (int k = 0; k < w && hit; ++k) {
-              const uint32_t x = __ldg(a + k);
-              hit = (bk[k] & x) == x;
-            }
-            ok[q] = hit;
-          }
-        }
-      }
+      if (__any_sync(0xffffffffu, wide))  // antecedents the uint16 slots do not hold: rare
+        ok = match_rare(ok, bk, an_s, c.af, ante, r0, g, n, w, lane);
 #pragma unroll
       for (int q = 0; q < kUnroll; ++q) {
-        const unsigned hits = __ballot_sync(0xffffffffu, ok[q]);
-        if (ok[q]) list[cnt + __popc(hits & below)] = (uint16_t)(g + 32 * q + lane);
+        const unsigned hits = __ballot_sync(0xffffffffu, (ok >> q) & 1u);
+        if ((ok >> q) & 1u) list[cnt + __popc(hits & below)] = (uint16_t)(g + 32 * q + lane);
         cnt += __popc(hits);
       }
     }
     __syncwarp();
 
-    // fan-out, 32 matched rules at a time
+    // fan-out of the window's items, 32 matched rules at a time
     for (int base = 0; base < cnt; base += 32) {
       const int ng = min(32, cnt - base);
       const int lr = list[base + min(lane, ng - 1)];
       const int cn = lane < ng ? cn_s[lr] : 0;
       const uint2 ci = ci_s[lr];
       const float s = score_s[lr];
-      if (__any_sync(0xffffffffu, cn == kWide)) {  // rule by rule: rare
+      if (__any_sync(0xffffffffu, cn >= kWide)) {  // rule by rule: rare
         for (int m = 0; m < ng; ++m) {
           const int cm = __shfl_sync(0xffffffffu, cn, m);
           const uint2 cs = make_uint2(__shfl_sync(0xffffffffu, ci.x, m), __shfl_sync(0xffffffffu, ci.y, m));
           const float sm = __shfl_sync(0xffffffffu, s, m);
           const int lrm = __shfl_sync(0xffffffffu, lr, m);
           if (cm == kWide) {
-            const uint32_t* cr = cons + (size_t)(r0 + lrm) * w;
-            for (int k = 0; k < w; ++k)
+            const uint32_t* cr = cons + (size_t)(r0 + lrm) * w + w0;
+            for (int k = 0; k < wn; ++k)
               if ((__ldg(cr + k) >> lane) & 1u) row[k * kRowStride + lane] += sm;
+          } else if (cm > kFar) {
+            const uint4 f = c.cf[r0 + lrm];
+            const uint32_t ids[kMaxItems] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+            for (int k = 0; k < kMaxItems; ++k)
+              if (k < cm - kFar && (ids[k] & 31u) == (uint32_t)lane && mine(ids[k]))
+                row[((ids[k] >> 5) - w0) * kRowStride + lane] += sm;
           } else {
 #pragma unroll
             for (int k = 0; k < kMaxItems; ++k) {
               const uint32_t item = slot(cs, k);
-              if (k < cm && (item & 31u) == (uint32_t)lane) row[(item >> 5) * kRowStride + lane] += sm;
+              if (k < cm && (item & 31u) == (uint32_t)lane && mine(item))
+                row[((item >> 5) - w0) * kRowStride + lane] += sm;
             }
           }
         }
         continue;
       }
-      // the group's items in rule order, item << 5 | rule: lane t's at [off, off + cn)
-      int off = cn;
+      // the group's items in the window, in rule order, as (item - 32·w0)
+      // << 5 | rule: lane t's at [off, off + cw)
+      int cw = 0;
+#pragma unroll
+      for (int k = 0; k < kMaxItems; ++k) cw += (k < cn && mine(slot(ci, k))) ? 1 : 0;
+      int off = cw;
 #pragma unroll
       for (int d = 1; d < 32; d <<= 1) {
         const int v = __shfl_up_sync(0xffffffffu, off, d);
         if (lane >= d) off += v;
       }
       const int total = __shfl_sync(0xffffffffu, off, 31);
-      off -= cn;
+      off -= cw;
 #pragma unroll
-      for (int k = 0; k < kMaxItems; ++k)
-        if (k < cn) items[off + k] = slot(ci, k) << 5 | (uint32_t)lane;
+      for (int k = 0; k < kMaxItems; ++k) {
+        const uint32_t item = slot(ci, k);
+        if (k < cn && mine(item)) items[off++] = (item - 32u * w0) << 5 | (uint32_t)lane;
+      }
       __syncwarp();
       // queue each item's place for its owner lane i % 32, 32 places at a
       // time: its rank among this round's places of the same owner, after
@@ -354,62 +430,56 @@ rule_match_kernel(const uint32_t* __restrict__ baskets,
 
   __syncthreads();  // rows complete (and initialised, where R is empty)
   if (!live) return;
-  float* o = out + (size_t)(b0 + warp) * (32 * w);
-  for (int i = 4 * lane; i < 32 * w; i += 128) {
+  float* o = out + (size_t)(b0 + warp) * (32 * (size_t)w) + 32 * (size_t)w0;
+  for (int i = 4 * lane; i < 32 * wn; i += 128) {
     const float* src = row + (i >> 5) * kRowStride + (i & 31);
     *reinterpret_cast<float4*>(o + i) = make_float4(src[0], src[1], src[2], src[3]);
   }
 }
 
-template <int kWarps>
+template <bool kTiled>
 int launch_with(const void* baskets, const void* ante, const void* cons, const void* scores,
                 const Compact& c, void* out, int nb, int nr, int w, cudaStream_t stream) {
-  const long long smem = smem_bytes(kWarps, w);
+  const int wt = kTiled ? kWindow : w;
+  const long long smem = smem_bytes(wt, kTiled ? 0 : w);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(rule_match_kernel<kWarps>,
+    cudaError_t e = cudaFuncSetAttribute(rule_match_kernel<kTiled>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int grid = (nb + kWarps - 1) / kWarps;
-  rule_match_kernel<kWarps><<<grid, 32 * kWarps, (size_t)smem, stream>>>(
+  const long long groups = (nb + kWarps - 1) / kWarps;
+  const long long grid = groups * ((w + wt - 1) / wt);
+  if (grid > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  rule_match_kernel<kTiled><<<(unsigned)grid, 32 * kWarps, (size_t)smem, stream>>>(
       static_cast<const uint32_t*>(baskets), static_cast<const uint32_t*>(ante),
       static_cast<const uint32_t*>(cons), static_cast<const float*>(scores), c,
-      static_cast<float*>(out), nb, nr, w);
+      static_cast<float*>(out), nb, nr, w, wt);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
-
-// Dynamic shared memory the launch needs for w words (with as many baskets
-// per block as fit; one basket per block is the least).
-extern "C" long long rule_match_smem_bytes(int w) { return smem_bytes(pick_warps(w), w); }
 
 // Bytes of device scratch the launch needs for nr rules.
 extern "C" long long rule_match_scratch_bytes(int nr) { return scratch_bytes(nr); }
 
 // baskets (nb, w), ante / cons (nr, w) uint32 words; lengths (nr,) int32;
 // scores (nr,) float32; out (nb, 32w) float32; scratch of
-// rule_match_scratch_bytes(nr) bytes, 8-byte aligned.  Returns
-// cudaGetLastError().
+// rule_match_scratch_bytes(nr) bytes, 8-byte aligned.  Any w with 32·w
+// items numbered in an int.  Returns cudaGetLastError().
 extern "C" int rule_match_launch(const void* baskets, const void* ante, const void* lengths,
                                  const void* cons, const void* scores, void* out, void* scratch,
                                  int nb, int nr, int w, void* stream) {
   if (nb <= 0) return 0;
-  if (w <= 0 || w > kMaxWords || nr < 0) return (int)cudaErrorInvalidValue;
-  if (rule_match_smem_bytes(w) > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (w <= 0 || 32LL * w > INT_MAX || nr < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Compact c = carve(scratch, nr);
   if (nr > 0) {
-    compact_rules_kernel<<<(nr + 255) / 256, 256, 0, s>>>(
+    compact_rules_kernel<<<(unsigned)((nr + 7LL) / 8), 256, 0, s>>>(
         static_cast<const uint32_t*>(ante), static_cast<const int32_t*>(lengths),
         static_cast<const uint32_t*>(cons), c, nr, w);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  switch (pick_warps(w)) {
-    case 8: return launch_with<8>(baskets, ante, cons, scores, c, out, nb, nr, w, s);
-    case 4: return launch_with<4>(baskets, ante, cons, scores, c, out, nb, nr, w, s);
-    case 2: return launch_with<2>(baskets, ante, cons, scores, c, out, nb, nr, w, s);
-    default: return launch_with<1>(baskets, ante, cons, scores, c, out, nb, nr, w, s);
-  }
+  if (w <= kWindow) return launch_with<false>(baskets, ante, cons, scores, c, out, nb, nr, w, s);
+  return launch_with<true>(baskets, ante, cons, scores, c, out, nb, nr, w, s);
 }

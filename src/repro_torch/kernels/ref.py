@@ -95,6 +95,63 @@ def support_count_packed_popcount_ref(t_packed, c_packed, lengths, block_k: int 
     return counts
 
 
+def item_bitmaps(t_packed):
+    """Packed rows (N, W) int32 -> item bitmaps (32·W, ceil(N/32)) int32:
+    bit r of word j of item i is bit i of row 32·j + r, zero past N.  The
+    plain version of K1's transpose; bits are OR-ed into the int32 words (F3)."""
+    n, w = t_packed.shape
+    nb = -(-n // 32)
+    shifts = torch.arange(32, dtype=torch.int32, device=t_packed.device)
+    bits = ((t_packed[:, :, None] >> shifts) & 1).reshape(n, 32 * w)
+    bits = torch.nn.functional.pad(bits, (0, 0, 0, 32 * nb - n)).reshape(nb, 32, 32 * w)
+    out = torch.zeros((32 * w, nb), dtype=torch.int32, device=t_packed.device)
+    for r in range(32):
+        out |= bits[:, r, :].T << r
+    return out
+
+
+def support_count_bitmaps(bitmaps, c_packed, lengths, n: int, mode: str = "and_cmp", block_k: int = 256):
+    """Support counts from item bitmaps (32·W, NB) int32 of ``n`` rows, the
+    plain version of K1's count, exact in both modes for any lengths.
+
+    Each candidate adds its items' bitmaps into a bit-sliced counter (one
+    plane per bit of its item count m), so a row's plane bits spell how many
+    of the candidate's items it holds; the count is the rows whose counter
+    equals the target.  and_cmp: target m (every item held), 0 where
+    ``len < 0``.  popcount: target ``len``, 0 where len < 0 or len > m.
+    Bits of rows at or past ``n`` are masked: an empty candidate would
+    count them.
+    """
+    items, nb = bitmaps.shape
+    k, w = c_packed.shape
+    dev = c_packed.device
+    cbits = unpack_bits_ref(c_packed, 32 * w).to(torch.bool)[:, :items]
+    m = cbits.sum(dim=1)
+    ln = lengths.to(torch.int64)
+    target = m if mode == "and_cmp" else ln
+    live = (ln >= 0) & (target <= m)
+    rows = torch.arange(32 * nb, device=dev).reshape(nb, 32) < n
+    row_mask = torch.zeros(nb, dtype=torch.int32, device=dev)
+    for r in range(32):
+        row_mask |= rows[:, r].to(torch.int32) << r
+    counts = torch.zeros(k, dtype=torch.int32, device=dev)
+    for k0 in range(0, k, block_k):
+        blk = slice(k0, k0 + block_k)
+        sel_blk, tgt = cbits[blk], target[blk]
+        planes = [torch.zeros((sel_blk.shape[0], nb), dtype=torch.int32, device=dev)
+                  for _ in range(max(1, int(m[blk].max().item()).bit_length()))]
+        for item in torch.nonzero(sel_blk.any(dim=0)).flatten().tolist():
+            carry = bitmaps[item][None, :] * sel_blk[:, item, None].to(torch.int32)
+            for p, plane in enumerate(planes):
+                planes[p], carry = plane ^ carry, plane & carry
+        eq = torch.full((sel_blk.shape[0], nb), -1, dtype=torch.int32, device=dev)
+        for p, plane in enumerate(planes):
+            eq &= torch.where(((tgt >> p) & 1).bool()[:, None], plane, ~plane)
+        eq &= row_mask[None, :]
+        counts[blk] = popcount32(eq).sum(dim=1, dtype=torch.int32)
+    return torch.where(live, counts, torch.zeros_like(counts))
+
+
 def popcount32(x):
     """Per-element popcount of int32 word views (SWAR; torch has no popcount
     op).  Each mask clears the bits an arithmetic shift drags in from the

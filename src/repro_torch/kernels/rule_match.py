@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_SMEM = 227 * 1024  # bytes of shared memory one H100 block may use
+MAX_ITEMS = 2**31 - 1  # the kernel numbers items in an int
 
 
 def launch(b: torch.Tensor, a: torch.Tensor, lengths: torch.Tensor, c: torch.Tensor,
@@ -22,9 +22,9 @@ def launch(b: torch.Tensor, a: torch.Tensor, lengths: torch.Tensor, c: torch.Ten
     lengths (R,) int32 and scores (R,) float32, contiguous on one CUDA device."""
     nb, w = b.shape
     nr = a.shape[0]
+    if 32 * w > MAX_ITEMS:
+        raise ValueError(f"rule_match: {w} words hold {32 * w} items; the kernel numbers items in an int32")
     lib = _build.library("rule_match")
-    if lib.rule_match_smem_bytes(w) > MAX_SMEM:
-        raise ValueError(f"rule_match: {w} words per basket need more shared memory than a block has")
     out = torch.empty((nb, 32 * w), dtype=torch.float32, device=b.device)
     # the rulebook's compact rows, rebuilt by the launch's first kernel
     scratch = torch.empty(lib.rule_match_scratch_bytes(nr), dtype=torch.uint8, device=b.device)

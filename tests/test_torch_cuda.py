@@ -6,11 +6,16 @@ fixture, so every worker collects the same tests).  Run on the card with
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
 
+import sys
+
 import numpy as np
 import pytest
+from conftest import REPO_ROOT
 
 torch = pytest.importorskip("torch")
 
+sys.path.insert(0, REPO_ROOT)
+from chip_smoke import k1_edge_problem  # noqa: E402  (K1's edges, shared with the smoke and tools)
 from repro_torch.core.itemsets import itemsets_to_packed, pack_bits, packed_words  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
@@ -81,6 +86,64 @@ def test_support_count_kernel_exact(cuda, shape, mode):
     assert ops.launch_counts()["support_count_packed"] == before + 1
     assert torch.equal(got, want)
     assert torch.equal(got.cpu(), ops.support_count_packed(t.cpu(), c.cpu(), ln.cpu(), mode=mode))
+
+
+@pytest.mark.parametrize("n", [1, 77, 1000])
+@pytest.mark.parametrize("mode", ["and_cmp", "popcount"])
+def test_k1_kernel_edges(cuda, n, mode):
+    """K1 on its edges: exactly the plain row-layout version and the plain
+    bitmap count, in both modes; the empty candidates count n (len 0) and,
+    in popcount mode, 0 (len 3)."""
+    from repro_torch.kernels import ref
+
+    tp, cp, lengths = k1_edge_problem(n, seed=n)
+    t, c, ln = _words(tp, cuda), _words(cp, cuda), torch.from_numpy(lengths).to(cuda)
+    before = ops.launch_counts()["support_count_packed"]
+    got = ops.support_count_packed(t, c, ln, mode=mode)
+    want = ops.support_count_packed(t, c, ln, mode=mode, impl="ref")
+    bitmap = ref.support_count_bitmaps(ref.item_bitmaps(t), c, ln, n, mode)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["support_count_packed"] == before + 1
+    assert torch.equal(got, want) and torch.equal(got, bitmap)
+    assert int(got[0]) == n and int(got[1]) == (n if mode == "and_cmp" else 0)
+
+
+@pytest.mark.parametrize("mode", ["and_cmp", "popcount"])
+def test_k1_kernel_row_slabs(cuda, mode, monkeypatch):
+    """With the bitmap scratch capped at one slab of 1,024 rows, a launch
+    walks 5 slabs of 4,100 rows and still gives the plain version's counts."""
+    from repro_torch.kernels import support_count_packed as k1
+
+    tp, cp, lengths = k1_edge_problem(4100, seed=4)
+    t, c, ln = _words(tp, cuda), _words(cp, cuda), torch.from_numpy(lengths).to(cuda)
+    monkeypatch.setattr(k1, "SCRATCH_CAP", 128 * t.shape[1] * 32)
+    assert k1.slab_words(4100, t.shape[1]) == 32
+    got = ops.support_count_packed(t, c, ln, mode=mode)
+    want = ops.support_count_packed(t, c, ln, mode=mode, impl="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_k1_level2_pass_equals_k3(cuda):
+    """At the main path's level-2 pass (FIMI T10I4D100K shape: N = 100,000,
+    41,616 candidates in a bucket of 65,536) K1 in both modes gives K3's
+    counts."""
+    from repro_torch.core import apriori
+    from repro_torch.core.candidates import generate_candidates
+    from repro_torch.data.synthetic import QuestConfig, gen_transactions
+
+    db = gen_transactions(QuestConfig(num_transactions=100_000, num_items=1_000, avg_len=10.0, seed=0))
+    freq1 = np.flatnonzero(db.sum(0, dtype=np.int64) >= 200).astype(np.int32)[:, None]
+    cands = generate_candidates(freq1)
+    kp = apriori._pad_bucket(cands.shape[0], apriori._candidate_quantum(apriori.AprioriConfig()))
+    dense = apriori.AprioriConfig()
+    want = ops.support_count(apriori.place_db(db, dense, cuda),
+                             *apriori._place_candidates(cands, kp, db.shape[1], dense, cuda))
+    packed = apriori.AprioriConfig(representation="packed")
+    t = apriori.place_db(db, packed, cuda)
+    c, ln = apriori._place_candidates(cands, kp, db.shape[1], packed, cuda)
+    for mode in ("and_cmp", "popcount"):
+        assert torch.equal(ops.support_count_packed(t, c, ln, mode=mode), want)
 
 
 def _dense_problem(shape, seed):
@@ -197,9 +260,12 @@ def test_rule_match_padding_inert(cuda):
 
 
 # (B, I, R): W = 1, 9, 10, 32 and 35 with R past the kernel's 1,024-rule
-# chunk, then W = 157 and 782, where a block holds 4 baskets and 1
+# chunk, then W = 157 and 782, which take 3 and 13 item windows of 64
+# words; W = 1,329 and 2,188 (F4: wider than one block's shared memory
+# held before the windows), the second with item ids past 65,535
 ORDERED_SHAPES = RULE_SHAPES + [(64, 20, 40), (64, 280, 300), (64, 300, 1030), (1024, 1000, 2500),
-                                (64, 1100, 1030), (16, 5000, 300), (8, 25000, 100)]
+                                (64, 1100, 1030), (16, 5000, 300), (8, 25000, 100),
+                                (8, 42528, 300), (8, 70000, 300)]
 
 
 def _ghost_rows(problem, seed):
@@ -260,6 +326,20 @@ def test_rule_match_kernel_wide_rules(cuda, shape):
     lengths = np.array([sum(bin(int(x)).count("1") for x in row) for row in ante], np.int32)
     lengths[rng.random(r) < 0.1] = -1
     args = _on((baskets, ante, lengths, cons, rng.random(r).astype(np.float32)), cuda)
+    got = ops.rule_match(*args)
+    want = ref.rule_match_ordered(*args)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(want) > 0
+    assert torch.equal(got, want)
+
+
+def test_rule_match_kernel_unstaged_baskets(cuda):
+    """At 1,500,000 items (46,875 words, 733 windows) the kernel reads each
+    basket's words from global memory, as at every width past one window:
+    still bit for bit rule_match_ordered, with padding rows."""
+    from repro_torch.kernels import ref
+
+    args = _on(_ghost_rows(_rule_problem((4, 1_500_000, 64), seed=15), seed=16), cuda)
     got = ops.rule_match(*args)
     want = ref.rule_match_ordered(*args)
     torch.cuda.synchronize()

@@ -127,3 +127,50 @@ def test_ordered_empty_and_all_padding():
     np.testing.assert_array_equal(none, 0.0)
     dead = _ordered(bk, ante, np.full_like(lengths, -1), cons, scores)
     np.testing.assert_array_equal(dead, 0.0)
+
+
+def _wide_problem(i, r, seed):
+    """8 baskets over i items and r rules: a third of the antecedents drawn
+    from a basket's own items (so they match), where i allows with one item
+    past 65,535; consequents of 1 to 3 items, every 4th with one past
+    65,535; every 9th rule with 5 to 8 antecedent and consequent items;
+    every 10th len = -1 with its bits and score kept."""
+    from repro.core.itemsets import itemsets_to_packed
+
+    rng = np.random.default_rng(seed)
+    dense = (rng.random((8, i)) < 0.3).astype(np.int8)
+
+    def pick(pool, m, far):
+        items = rng.choice(pool, size=m, replace=False)
+        if far and (pool >= 65_536).any():
+            items[0] = rng.choice(pool[pool >= 65_536])
+        return itemsets_to_packed(np.unique(items)[None], i)[0]
+
+    ante, cons = [], []
+    for row in range(r):
+        wide = row % 9 == 0
+        pool = np.flatnonzero(dense[row % 8]) if row % 3 == 0 else np.arange(i)
+        ante.append(pick(pool, rng.integers(5, 9) if wide else rng.integers(1, 5), row % 6 == 0))
+        cons.append(pick(np.arange(i), rng.integers(5, 9) if wide else rng.integers(1, 4), row % 4 == 0))
+    ante, cons = np.stack(ante), np.stack(cons)
+    lengths = np.unpackbits(ante.view(np.uint8), axis=1).sum(1).astype(np.int32)
+    lengths[::10] = -1
+    return pack_bits(dense), ante, lengths, cons, rng.random(r).astype(np.float32)
+
+
+@pytest.mark.parametrize("i", [42_528, 70_000])
+def test_ordered_wide_rulebooks(i):
+    """F4's widths, 1,329 and 2,188 words (the second with item ids past
+    65,535 in antecedents and consequents): within tolerance of the JAX
+    oracle and bit for bit the ascending-r numpy oracle."""
+    prob = _wide_problem(i, 300, seed=i)
+    bk, ante, lengths, cons, scores = prob
+    got = _ordered(*prob)
+    assert got.shape == (8, 32 * packed_words(i))
+    want = np.asarray(jref.rule_match_ref(*[jnp.asarray(x) for x in prob]))
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(got.view(np.uint32), _numpy_oracle(*prob, num_words=packed_words(i)).view(np.uint32))
+    if i > 65_536:
+        assert got[:, 65_536:].any()  # matched rules fan out to items past 65,535
+        matched = ((bk[:, None, :] & ante[None]) == ante[None]).all(-1).any(0) & (lengths >= 0)
+        assert (matched & ante[:, 2048:].any(1)).any()  # and antecedents holding one match

@@ -5,8 +5,8 @@
 ``tree`` is the kernel in ``src/repro_torch/kernels/csrc/support_count.cu``
 through the port's wrapper.  Any other variant is a CUDA source with K3's C
 interface (``support_count_launch``, or ``ENTRY``, taking t, c, lengths,
-out, n, k, ip, dtype, an int and a stream), built here with ``nvcc`` into
-``build/k3_variants/``.  A source whose int argument
+out, n, k, ip, dtype, an int and a stream), built with ``nvcc`` into
+``build/k3_variants/`` (``tools/variants.py``).  A source whose int argument
 is the transaction splits of a (candidate tile, split) grid, as the ``wmma``
 K3 of commit 2ce1b52 takes it, is named with a ``splits`` suffix in ENTRY:
 ``wmma=old.cu:support_count_launch:splits``.  For example, against that
@@ -29,23 +29,15 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import os
-import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import torch
+from variants import alternate, build, card, smoke
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, os.path.join(ROOT, "src"))
-sys.path.insert(0, ROOT)
+from repro_torch.kernels import ops
+from repro_torch.kernels import support_count as k3
 
-import chip_smoke as smoke  # noqa: E402
-from repro_torch.kernels import _build, ops  # noqa: E402
-from repro_torch.kernels import support_count as k3  # noqa: E402
-
-BUILD = os.path.join(ROOT, "build", "k3_variants")
 SWEEP = [(8, 16, 4), (100, 64, 33), (256, 128, 128), (300, 130, 257), (512, 512, 300), (200, 1100, 70),
          (1000, 130, 600), (1000, 1100, 600), (20000, 1000, 3000), (300, 64, 70000)]
 
@@ -59,13 +51,7 @@ def variant(spec: str):
     source, _, tail = rest.partition(":")
     entry, _, mode = tail.partition(":")
     entry, splits = entry or "support_count_launch", mode == "splits"
-    os.makedirs(BUILD, exist_ok=True)
-    lib_path = os.path.join(BUILD, f"lib{name}.so")
-    cmd = _build.nvcc_command(Path(source), Path(lib_path), _build.nvcc_path())
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    print(f"[build] {name}: {' '.join(cmd[1:])}\n{proc.stdout}{proc.stderr}".rstrip(), flush=True)
-    proc.check_returncode()
-    fn = getattr(ctypes.CDLL(lib_path), entry)
+    fn = getattr(build("k3", name, source), entry)
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -112,8 +98,8 @@ def main() -> int:
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("k3_variants: needs a CUDA card", file=sys.stderr)
+    line = card("k3_variants")
+    if line is None:
         return 2
     from repro_torch.core import apriori
     from repro_torch.core.candidates import generate_candidates
@@ -121,8 +107,6 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    card = smoke.card_line()
-    print(card, flush=True)
     runs = dict(variant(spec) for spec in args.variants)
     if args.check:
         for name, run in runs.items():
@@ -140,26 +124,21 @@ def main() -> int:
         t = apriori.place_db(db, cfg, dev)
         c, l_ = apriori._place_candidates(cands, kp, db.shape[1], cfg, dev)
         want = ops.support_count(t, c, l_, impl="ref")
-        times = {name: [] for name in runs}
-        for name in list(runs) + list(runs)[::-1]:
-            fn = lambda run=runs[name]: run(t, c, l_, operand_dtype)  # noqa: E731
-            if not torch.equal(fn(), want):
-                raise AssertionError(f"{name} {operand_dtype} at the level-2 pass: counts differ")
-            torch.cuda.synchronize()
-            times[name].append(smoke.cuda_ms(fn, args.reps))
+        calls = {name: (lambda run=run: run(t, c, l_, operand_dtype)) for name, run in runs.items()}
+        times = alternate(calls, want, args.reps, f"{operand_dtype} at the level-2 pass")
         if operand_dtype == "bf16":
             prod = lambda: torch.matmul(t, c.T)  # noqa: E731  (the product alone, never on the port's path)
             prod()
             torch.cuda.synchronize()
             result["gemm_ms"] = smoke.cuda_ms(prod, 3)
-            print(f"[time] bf16 torch.matmul of the same operands {result['gemm_ms']:.3f} ms [{card}]", flush=True)
+            print(f"[time] bf16 torch.matmul of the same operands {result['gemm_ms']:.3f} ms [{line}]", flush=True)
         for name, ts in times.items():
             ms = sum(ts) / len(ts)
             result[f"{name}_{operand_dtype}"] = ms
             print(f"[time] {name} {operand_dtype} N={t.shape[0]} Kp={kp} Ip={t.shape[1]}: exact; "
                   f"{' / '.join(f'{x:.3f}' for x in ts)} ms, mean {ms:.3f} ms = "
                   f"{op_count / (ms * 1e-3) / 1e12:.1f} T op/s over the real work, "
-                  f"{ms / result['gemm_ms']:.3f}x the bare bf16 product [{card}]", flush=True)
+                  f"{ms / result['gemm_ms']:.3f}x the bare bf16 product [{line}]", flush=True)
         del t, c
     print(json.dumps(result), flush=True)
     return 0
