@@ -21,7 +21,24 @@ and read just after:
   dict-identical to the packed mine and to the plain dense mine;
 * ``[son]``: ``mine_son`` over 8 partitions, dense (K3 in both phases),
   dict-identical to the level-wise mine, with K3's device time by CUDA
-  events.
+  events;
+
+then the out-of-core paths over the same DB, ingested into an on-disk store
+of 8 shards (``[store]``), each dict-identical to its in-memory twin with
+exact launch counts:
+
+* ``[stream]``: the packed ``mine_streamed`` through K1 at 8,192-row chunks,
+  with its breakdown (prefetch stall, count dispatch, host sync, K1 device
+  time);
+* ``[serve-chain]``: ``compile_rulebook`` on that result, then ``recommend``
+  of the store's first 4,096 packed rows through K2, bit for bit the
+  in-memory chain's;
+* ``[stream-dense]``: the dense bf16 ``mine_streamed`` through K3 at
+  6,000-row chunks, unpacked on the card;
+* ``[stream-son]``: ``mine_son_streamed`` over the 8 shards through the
+  retrying phase-1 executor, K3 in both phases;
+* ``[stream-resume]``: a checkpointed packed ``mine_streamed`` stopped after
+  its third save, mid-level, then resumed.
 
 Any failed check raises, and the script exits non-zero.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
@@ -35,6 +52,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -529,10 +547,12 @@ def k3_main_shape(ops, db, cands, k1_counts, dev, card):
 
 
 class PhaseTimes:
-    """Collects the level loop's candidate-generation times (its ``obs`` hook)."""
+    """Collects the miners' phase times by name and the streamed chunks
+    (their ``obs`` hook)."""
 
     def __init__(self):
-        self.candidate_gen_s = 0.0
+        self.seconds = {}
+        self.chunks = 0
 
     def on_level_start(self, k, n):
         pass
@@ -540,8 +560,91 @@ class PhaseTimes:
     def on_level_end(self, k, n):
         pass
 
+    def observe_max_candidate_bucket(self, kp):
+        pass
+
     def add_phase(self, name, t0, t1):
-        self.candidate_gen_s += t1 - t0
+        self.seconds[name] = self.seconds.get(name, 0.0) + t1 - t0
+
+    def on_chunk(self, rows):
+        self.chunks += 1
+
+    @property
+    def candidate_gen_s(self):
+        return self.seconds.get("candidate_gen", 0.0)
+
+
+class KernelEvents:
+    """Within ``with``: every call of ``module.<attr>`` records a CUDA event
+    pair around it on the current stream (from any thread); :meth:`ms` sums
+    their device time.  The wrapped function still counts its launches."""
+
+    def __init__(self, module, attr):
+        self.module, self.attr, self.events = module, attr, []
+
+    def __enter__(self):
+        fn = self.fn = getattr(self.module, self.attr)
+
+        def timed(*args, **kwargs):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*args, **kwargs)
+            e1.record()
+            self.events.append((e0, e1))
+            return out
+
+        setattr(self.module, self.attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.fn)
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(e0.elapsed_time(e1) for e0, e1 in self.events)
+
+
+def device_profile(run):
+    """One call of ``run`` under ``torch.profiler`` (device activity only):
+    (host wall s, {CUDA kernel or copy name: (device ms, count)})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall, {e.key: (e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+                  if e.device_time_total > 0}
+
+
+def kernel_name(key: str) -> str:
+    """A profiler key's CUDA function name, without template and arguments."""
+    return key.removeprefix("void ").removeprefix("(anonymous namespace)::").split("(")[0].split("<")[0]
+
+
+# the CUDA kernels of each wrapper's launch, by name
+K1_KERNELS = ("candidate_meta_kernel", "bitmap_kernel", "count_kernel")
+K3_KERNELS = ("support_count_kernel",)
+K2_KERNELS = ("compact_rules_kernel", "rule_match_kernel")
+
+
+def profiled_breakdown(tag, run, kernels, what, launches, card):
+    """The streamed mine once more, warm, under the profiler: the device time
+    of the wrapper's kernels (``kernels``), of the host -> device copies and
+    of the rest, and the device's busy share of the wall.  Returns the
+    wrapper's device ms a launch."""
+    wall, times = device_profile(run)
+    mine_ms = sum(ms for key, (ms, _) in times.items() if kernel_name(key) in kernels)
+    h2d = sum(ms for key, (ms, _) in times.items() if "HtoD" in key)
+    busy = sum(ms for ms, _ in times.values())
+    log(f"[{tag}] profiled warm run {wall:.3f} s: {what} device time {mine_ms:.3f} ms over {launches} launches "
+        f"= {mine_ms / launches:.4f} ms a chunk launch; host -> device copies {h2d:.3f} ms; other device work "
+        f"{busy - mine_ms - h2d:.3f} ms; device busy {busy:.2f} ms = {busy / 1e3 / wall:.4f} of the wall [{card}]")
+    for key, (ms, count) in sorted(times.items(), key=lambda kv: -kv[1][0])[:6]:
+        log(f"[{tag}] profile: {key[:70]} {ms:.3f} ms over {count} [{card}]")
+    return mine_ms / launches
 
 
 def mine_breakdown(db, cfg, dev, card, kernel):
@@ -551,6 +654,16 @@ def mine_breakdown(db, cfg, dev, card, kernel):
     ``kernel`` launches by CUDA events)."""
     from repro_torch.core import apriori
 
+    before = ""
+    if cfg.representation == "packed":
+        # the packed placement before it packed on the card: host pack_bits, then one copy
+        from repro_torch.core.itemsets import pack_bits
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.from_numpy(pack_bits(db).view(np.int32)).to(dev)
+        torch.cuda.synchronize()
+        before = f" (host pack_bits and copy, as before the card packed: {time.perf_counter() - t0:.3f} s)"
     torch.cuda.synchronize()
     t_start = time.perf_counter()
     t_dev = apriori.place_db(db, cfg, dev)
@@ -592,7 +705,7 @@ def mine_breakdown(db, cfg, dev, card, kernel):
     wall = time.perf_counter() - t_start
     torch.cuda.synchronize()
     kernel_ms = sum(e0.elapsed_time(e1) for e0, e1 in events)
-    log(f"[breakdown] {cfg.representation} mine wall {wall:.3f} s: place_db {place_s:.3f} s, candidate "
+    log(f"[breakdown] {cfg.representation} mine wall {wall:.3f} s: place_db {place_s:.3f} s{before}, candidate "
         f"generation {phases.candidate_gen_s:.3f} s, counting passes {count_s[0]:.3f} s (of which "
         f"candidate placement on the host {place_c_s[0]:.3f} s; {kernel} device time {kernel_ms:.2f} ms "
         f"over {len(events)} launches), rest {wall - place_s - phases.candidate_gen_s - count_s[0]:.3f} s; "
@@ -660,12 +773,12 @@ def recommend_breakdown(rb, baskets, card):
         f"top-k sort {phase_s['topk']:.4f} s, D2H {phase_s['d2h']:.4f} s, rest {rest:.4f} s [{card}]")
 
 
-def expected_passes(res, num_items, cfg) -> int:
-    """Candidate passes the level loop counts for this result: one per
-    ``max_candidates_per_pass`` slice of each level's candidates."""
+def level_passes(res, num_items, cfg) -> dict:
+    """k -> the candidate passes the level loop counts at level k for this
+    result: one per ``max_candidates_per_pass`` slice of its candidates."""
     from repro_torch.core.candidates import generate_candidates
 
-    passes = math.ceil(num_items / cfg.max_candidates_per_pass)
+    passes = {1: math.ceil(num_items / cfg.max_candidates_per_pass)}
     for k in range(2, cfg.max_k + 1):
         prev = res.levels.get(k - 1)
         if prev is None or prev[0].shape[0] < k:
@@ -673,10 +786,252 @@ def expected_passes(res, num_items, cfg) -> int:
         n_c = generate_candidates(prev[0]).shape[0]
         if n_c == 0:
             break
-        passes += math.ceil(n_c / cfg.max_candidates_per_pass)
+        passes[k] = math.ceil(n_c / cfg.max_candidates_per_pass)
         if k not in res.levels:
             break
     return passes
+
+
+def expected_passes(res, num_items, cfg) -> int:
+    """Candidate passes the level loop counts for this result."""
+    return sum(level_passes(res, num_items, cfg).values())
+
+
+# ------------------------------------------------------- out of core ---------
+STORE_SHARD_ROWS = 12_500     # 8 shards: the in-memory SON's 8 partitions
+STREAM_CHUNK_ROWS = 8_192     # 13 chunks a pass, the last 1,696 rows zero-padded
+DENSE_CHUNK_ROWS = 6_000      # 17 chunks a pass; not a multiple of K3's 256-row tile
+
+
+def store_phase(qcfg, db, root):
+    """``[store]``: ``ingest_quest`` into an on-disk store of 8 shards of
+    12,500 rows, byte-equal to the host packing of the generated DB."""
+    from repro_torch.core.itemsets import pack_bits
+    from repro_torch.data.store import ingest_quest
+
+    t0 = time.perf_counter()
+    store = ingest_quest(qcfg, os.path.join(root, "store"), shard_rows=STORE_SHARD_ROWS)
+    ingest_s = time.perf_counter() - t0
+    n = db.shape[0]
+    if store.manifest.shard_rows != (STORE_SHARD_ROWS,) * (n // STORE_SHARD_ROWS):
+        raise AssertionError(f"[store] shard rows {store.manifest.shard_rows}")
+    packed = pack_bits(db)
+    for p in range(store.num_partitions):
+        if not np.array_equal(store.partition_packed(p), packed[p * STORE_SHARD_ROWS:(p + 1) * STORE_SHARD_ROWS]):
+            raise AssertionError(f"[store] shard {p} differs from the packed DB")
+    log(f"[store] ingest_quest {n} x {store.num_items} into {store.num_partitions} shards of "
+        f"{STORE_SHARD_ROWS} rows ({store.manifest.words} words a row) in {ingest_s:.3f} s on the host; "
+        "every shard byte-equal to the packed generated DB")
+    return store
+
+
+def stream_breakdown(tag, obs, wall, kernel, kernel_ms, launches, extra=""):
+    phases = ", ".join(f"{name} {sec:.3f} s" for name, sec in sorted(obs.seconds.items()))
+    log(f"[{tag}] wall {wall:.3f} s: {phases}, {obs.chunks} chunks; {kernel} by CUDA events around each "
+        f"launch {kernel_ms:.2f} ms over {launches} launches = {kernel_ms / max(launches, 1):.4f} ms a chunk "
+        f"launch, {kernel_ms / 1e3 / wall:.4f} of the wall (an event pair spans the launch's host-side "
+        f"enqueue too, while the device waits for it){extra}")
+
+
+def stream_phase(streaming, ops, store, cfg, res, mine_s, dev, card):
+    """``[stream]``: the packed ``mine_streamed`` through K1 at 8,192-row
+    chunks, dict-identical to the in-memory packed mine, K1 launched
+    passes x 13 times; its breakdown."""
+    n = store.num_transactions
+    chunks = -(-n // STREAM_CHUNK_ROWS)
+    passes = expected_passes(res, store.num_items, cfg)
+    obs = PhaseTimes()
+    ops.reset_launch_counts()
+    with KernelEvents(ops, "support_count_packed") as k1_events:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = streaming.mine_streamed(store, cfg, device=dev, chunk_rows=STREAM_CHUNK_ROWS, obs=obs)
+        wall = time.perf_counter() - t0
+    launches = ops.launch_counts()["support_count_packed"]
+    k1_ms = k1_events.ms()
+    log(f"[stream] packed mine_streamed {wall:.3f} s (in-memory packed mine {mine_s:.3f} s): {passes} passes x "
+        f"{chunks} chunks of {STREAM_CHUNK_ROWS} rows (the last {n - (chunks - 1) * STREAM_CHUNK_ROWS} real, "
+        f"zero-padded); launches {ops.launch_counts()} [{card}]")
+    if launches != passes * chunks or obs.chunks != passes * chunks:
+        raise AssertionError(f"[stream] K1 launched {launches} times ({obs.chunks} chunks) for "
+                             f"{passes} passes x {chunks} chunks")
+    if got.as_dict() != res.as_dict():
+        raise AssertionError("[stream] mine_streamed differs from the in-memory packed mine")
+    stream_breakdown("stream", obs, wall, "K1", k1_ms, launches, f" [{card}]")
+    log(f"[stream] dict-identical to the in-memory packed mine ({len(got.as_dict())} itemsets)")
+    ms = profiled_breakdown(
+        "stream", lambda: streaming.mine_streamed(store, cfg, device=dev, chunk_rows=STREAM_CHUNK_ROWS),
+        K1_KERNELS, "K1", launches, card)
+    return got, dict(launches=launches, ms_per_launch=ms, event_ms_per_launch=k1_ms / launches)
+
+
+def serve_chain_phase(ops, store, sres, rb_host, rec, dev, card):
+    """``[serve-chain]``: compile the streamed result, then recommend the
+    store's first 4,096 packed rows through K2; bit for bit the in-memory
+    chain's recommend."""
+    from repro_torch.serving.recommend import recommend
+    from repro_torch.serving.rulebook import compile_rulebook, place_rulebook
+
+    t0 = time.perf_counter()
+    rb_s = compile_rulebook(sres, min_confidence=0.4, score="confidence", num_items=store.num_items)
+    compile_s = time.perf_counter() - t0
+    for col in ("ante_packed", "ante_len", "cons_packed", "scores"):
+        if not np.array_equal(getattr(rb_s, col), getattr(rb_host, col)):
+            raise AssertionError(f"[serve-chain] rulebook column {col} differs from the in-memory chain's")
+    rb = place_rulebook(rb_s, dev)
+    baskets, valid = next(iter(store.iter_chunks(4096, representation="packed")))
+    ops.reset_launch_counts()
+    with KernelEvents(ops, "rule_match") as k2_events:
+        t0 = time.perf_counter()
+        got = recommend(rb, baskets, top_k=10, batch_size=1024, device=dev)
+        rec_s = time.perf_counter() - t0
+    launches = ops.launch_counts()["rule_match"]
+    k2_ms = k2_events.ms()
+    batches = -(-valid // 1024)
+    log(f"[serve-chain] compile {compile_s:.3f} s ({rb_s.num_rules} rules, the in-memory chain's rulebook); "
+        f"recommend of the store's first {valid} packed rows {rec_s:.4f} s; K2 launched {launches} times, "
+        f"device time {k2_ms:.3f} ms [{card}]")
+    if launches != batches:
+        raise AssertionError(f"[serve-chain] K2 launched {launches} times for {batches} batches")
+    if not (np.array_equal(got.items, rec.items) and np.array_equal(got.scores, rec.scores)):
+        raise AssertionError("[serve-chain] recommend on the store's rows differs from the in-memory chain's")
+    log("[serve-chain] items and scores bit for bit the in-memory chain's recommend")
+    ms = profiled_breakdown(
+        "serve-chain", lambda: recommend(rb, baskets, top_k=10, batch_size=1024, device=dev),
+        K2_KERNELS, "K2", launches, card)
+    return dict(launches=launches, ms_per_launch=ms, event_ms_per_launch=k2_ms / launches)
+
+
+def stream_dense_phase(streaming, apriori, ops, store, dense_cfg, dense_res, dev, card):
+    """``[stream-dense]``: ``mine_streamed`` at the default dense bf16
+    config through K3 at 6,000-row chunks (17 a pass), dict-identical to
+    the in-memory dense mine, K3 launched passes x 17 times."""
+    n = store.num_transactions
+    chunks = -(-n // DENSE_CHUNK_ROWS)
+    passes = expected_passes(dense_res, store.num_items, dense_cfg)
+    obs = PhaseTimes()
+    ops.reset_launch_counts()
+    with KernelEvents(ops, "support_count") as k3_events, \
+            KernelEvents(apriori, "place_words") as unpack_events:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = streaming.mine_streamed(store, dense_cfg, device=dev, chunk_rows=DENSE_CHUNK_ROWS, obs=obs)
+        wall = time.perf_counter() - t0
+    launches = ops.launch_counts()["support_count"]
+    k3_ms = k3_events.ms()
+    log(f"[stream-dense] dense bf16 mine_streamed {wall:.3f} s: {passes} passes x {chunks} chunks of "
+        f"{DENSE_CHUNK_ROWS} rows (the last {n - (chunks - 1) * DENSE_CHUNK_ROWS} real, zero-padded); "
+        f"launches {ops.launch_counts()} [{card}]")
+    if launches != passes * chunks:
+        raise AssertionError(f"[stream-dense] K3 launched {launches} times for {passes} passes x {chunks} chunks")
+    if got.as_dict() != dense_res.as_dict():
+        raise AssertionError("[stream-dense] mine_streamed differs from the in-memory dense mine")
+    stream_breakdown("stream-dense", obs, wall, "K3", k3_ms, launches,
+                     f"; unpacking the chunks on the card {unpack_events.ms():.2f} ms over "
+                     f"{len(unpack_events.events)} chunks [{card}]")
+    log(f"[stream-dense] dict-identical to the in-memory dense mine ({len(got.as_dict())} itemsets)")
+    ms = profiled_breakdown(
+        "stream-dense", lambda: streaming.mine_streamed(store, dense_cfg, device=dev, chunk_rows=DENSE_CHUNK_ROWS),
+        K3_KERNELS, "K3", launches, card)
+    return dict(launches=launches, ms_per_launch=ms, event_ms_per_launch=k3_ms / launches)
+
+
+def stream_son_phase(streaming, ops, store, dense_cfg, dense_res, son_phase1, son_union, dev, card):
+    """``[stream-son]``: ``mine_son_streamed`` over the 8 shards, dense,
+    through the retrying executor without speculation: dict-identical, the
+    phase-1 union and launches the in-memory SON's, phase 2 one K3 launch
+    per (chunk, union pass), every partition completed once."""
+    from repro_torch.distributed.fault_tolerance import FaultConfig
+
+    seen = {}
+    union_fn = streaming.count_union_streamed
+
+    def union_counted(store_, per_level, *args, **kwargs):
+        seen["phase1"] = ops.launch_counts()["support_count"]
+        seen["per_level"] = per_level
+        return union_fn(store_, per_level, *args, **kwargs)
+
+    ops.reset_launch_counts()
+    streaming.count_union_streamed = union_counted
+    try:
+        t0 = time.perf_counter()
+        got = streaming.mine_son_streamed(store, dense_cfg, device=dev, fault=FaultConfig(speculative=False))
+        wall = time.perf_counter() - t0
+    finally:
+        streaming.count_union_streamed = union_fn
+    launches = ops.launch_counts()["support_count"]
+    phase1, per_level = seen["phase1"], seen["per_level"]
+    chunks = -(-store.num_transactions // STREAM_CHUNK_ROWS)
+    units = sum(math.ceil(c.shape[0] / dense_cfg.max_candidates_per_pass) for c in per_level.values())
+    report = got.fault_report
+    log(f"[stream-son] mine_son_streamed over {store.num_partitions} shards {wall:.3f} s, 2 mapper threads; "
+        f"K3 launched {launches} times ({phase1} in phase 1, the in-memory SON's {son_phase1}; "
+        f"{launches - phase1} in phase 2 = {units} union passes x {chunks} chunks); fault report "
+        f"{json.dumps(report.to_json())} [{card}]")
+    if phase1 != son_phase1 or launches - phase1 != units * chunks:
+        raise AssertionError("[stream-son] K3 launches per phase differ from the expected")
+    if list(per_level) != list(son_union) or any(
+            not np.array_equal(per_level[k], son_union[k]) for k in per_level):
+        raise AssertionError("[stream-son] the phase-1 union differs from the in-memory SON's")
+    if report.completed != store.num_partitions or report.retries or report.skipped:
+        raise AssertionError(f"[stream-son] fault report {report.to_json()}")
+    if got.as_dict() != dense_res.as_dict():
+        raise AssertionError("[stream-son] mine_son_streamed differs from the level-wise mine")
+    log(f"[stream-son] dict-identical to the level-wise mine; phase-1 union equal to the in-memory SON's")
+
+
+class _Stopped(Exception):
+    """The deliberate stop of ``[stream-resume]``'s first run."""
+
+
+def stream_resume_phase(streaming, ops, store, cfg, res, dev, card):
+    """``[stream-resume]``: a packed ``mine_streamed`` saving every 4
+    chunks stops right after its third save (mid-level), then
+    ``resume=True`` finishes it: dict-identical, K1 launched once per chunk
+    left."""
+    from repro_torch.distributed.checkpoint import MiningCheckpoint
+
+    class StopAtThirdSave(MiningCheckpoint):
+        saves = 0
+
+        def save(self, state, store_fp, mine_fp):
+            seq = super().save(state, store_fp, mine_fp)
+            self.saves += 1
+            if self.saves == 3:
+                self.wait()   # the snapshot is committed; now the run stops
+                raise _Stopped()
+            return seq
+
+    ck = store.checkpoint_path
+    try:
+        streaming.mine_streamed(store, cfg, device=dev, chunk_rows=STREAM_CHUNK_ROWS,
+                                checkpoint=StopAtThirdSave(ck), checkpoint_every_chunks=4)
+    except _Stopped:
+        pass
+    else:
+        raise AssertionError("[stream-resume] the checkpoint's third save did not stop the mine")
+    state, _ = MiningCheckpoint(ck).load_latest()
+    if not state.mid_level:
+        raise AssertionError("[stream-resume] the third save is not mid-level")
+    chunks = -(-store.num_transactions // STREAM_CHUNK_ROWS)
+    per_level = level_passes(res, store.num_items, cfg)
+    done = chunks * (sum(p for k, p in per_level.items() if k < state.next_k)
+                     + state.pass_start // cfg.max_candidates_per_pass) + state.chunks_done
+    left = chunks * sum(per_level.values()) - done
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = streaming.mine_streamed(store, cfg, device=dev, chunk_rows=STREAM_CHUNK_ROWS,
+                                  checkpoint=MiningCheckpoint(ck), checkpoint_every_chunks=4, resume=True)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()["support_count_packed"]
+    log(f"[stream-resume] stopped after the third save (level {state.next_k}, chunk {state.chunks_done} of "
+        f"pass at candidate {state.pass_start}); resumed mine {wall:.3f} s, K1 launched {launches} times for "
+        f"the {left} chunks left of {chunks * sum(per_level.values())} [{card}]")
+    if launches != left:
+        raise AssertionError(f"[stream-resume] K1 launched {launches} times for {left} chunks left")
+    if got.as_dict() != res.as_dict():
+        raise AssertionError("[stream-resume] the resumed mine differs from the in-memory packed mine")
+    log("[stream-resume] dict-identical to the in-memory packed mine")
 
 
 def main() -> int:
@@ -685,10 +1040,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    from repro_torch.core import apriori, streaming
+    from repro_torch.core import son as son_mod
     from repro_torch.core.apriori import AprioriConfig, mine, place_db
     from repro_torch.core.candidates import generate_candidates
     from repro_torch.core.itemsets import pack_bits
-    from repro_torch.core import son as son_mod
     from repro_torch.data.synthetic import QuestConfig, gen_transactions
     from repro_torch.kernels import _build
     from repro_torch.kernels import ops
@@ -820,30 +1176,18 @@ def main() -> int:
         return union
 
     # K3's device time in the run, by CUDA events around each wrapper call
-    son_events = []
-    count_fn = ops.support_count
-
-    def timed_count(*args, **kwargs):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = count_fn(*args, **kwargs)
-        e1.record()
-        son_events.append((e0, e1))
-        return out
-
     ops.reset_launch_counts()
     son_mod.union_local_winners = phase1_counted
-    ops.support_count = timed_count
     try:
-        t0 = time.perf_counter()
-        son_res = son_mod.mine_son(db, dense_cfg, device=dev, num_partitions=8)
-        son_s = time.perf_counter() - t0
+        with KernelEvents(ops, "support_count") as k3_events:
+            t0 = time.perf_counter()
+            son_res = son_mod.mine_son(db, dense_cfg, device=dev, num_partitions=8)
+            son_s = time.perf_counter() - t0
     finally:
         son_mod.union_local_winners = phase1_fn
-        ops.support_count = count_fn
     son_launches = ops.launch_counts()["support_count"]
-    torch.cuda.synchronize()
-    son_k3_ms = sum(e0.elapsed_time(e1) for e0, e1 in son_events)
+    son_k3_ms = k3_events.ms()
+    son_events = k3_events.events
     phase1 = son_seen["phase1"]
     union_levels = son_mod.winners_to_arrays(son_seen["union"])
     phase2_passes = sum(math.ceil(c.shape[0] / dense_cfg.max_candidates_per_pass) for c in union_levels.values())
@@ -859,6 +1203,18 @@ def main() -> int:
         raise AssertionError("mine_son differs from the level-wise mine")
     log(f"[son] dict-identical to the level-wise mine ({len(son_res.as_dict())} itemsets)")
 
+    # ---- out of core: the store, the streamed mines, the serve chain from
+    # the store's rows, streamed SON and a stopped-and-resumed mine; each
+    # phase sets the launch counts to 0 just before its run and reads them
+    # just after
+    with tempfile.TemporaryDirectory() as root:
+        store = store_phase(qcfg, db, root)
+        stream_res, k1_stream = stream_phase(streaming, ops, store, cfg, res, mine_s, dev, card)
+        k2_stream = serve_chain_phase(ops, store, stream_res, rb_host, rec, dev, card)
+        k3_stream = stream_dense_phase(streaming, apriori, ops, store, dense_cfg, dense_res, dev, card)
+        stream_son_phase(streaming, ops, store, dense_cfg, dense_res, phase1, union_levels, dev, card)
+        stream_resume_phase(streaming, ops, store, cfg, res, dev, card)
+
     # ---- K2 at the main path's batch shape
     k2 = k2_main_shape(ops, rb, pack_bits(db[:1024]), dev, card)
 
@@ -868,17 +1224,23 @@ def main() -> int:
              replaces="src/repro/kernels/support_count_packed.py:106", launches=k1_launches,
              max_abs_err=k1["and_cmp"]["max_abs_err"], ms=k1["and_cmp"]["ms"],
              plain_ms=k1["and_cmp"]["plain_ms"], bound_ms=k1["and_cmp"]["bound_ms"],
-             bound_by=k1["and_cmp"]["bound_by"], library_ms=None),
+             bound_by=k1["and_cmp"]["bound_by"], library_ms=None,
+             stream_launches=k1_stream["launches"], stream_ms_per_launch=k1_stream["ms_per_launch"],
+             stream_event_ms_per_launch=k1_stream["event_ms_per_launch"]),
         dict(name="rule_match", route="cuda", source="src/repro_torch/kernels/csrc/rule_match.cu",
              replaces="src/repro/kernels/rule_match.py:86", launches=k2_launches,
              max_abs_err=k2["max_abs_err"], ms=k2["ms"], plain_ms=k2["plain_ms"],
              bound_ms=k2["bound_ms"], bound_by=k2["bound_by"], library_ms=None,
-             all_match_ms=k2["all_match_ms"]),
+             all_match_ms=k2["all_match_ms"],
+             stream_launches=k2_stream["launches"], stream_ms_per_launch=k2_stream["ms_per_launch"],
+             stream_event_ms_per_launch=k2_stream["event_ms_per_launch"]),
         dict(name="support_count", route="cuda", source="src/repro_torch/kernels/csrc/support_count.cu",
              replaces="src/repro/kernels/support_count.py:69", launches=k3_launches,
              max_abs_err=k3["bf16"]["max_abs_err"], ms=k3["bf16"]["ms"], plain_ms=k3["bf16"]["plain_ms"],
              bound_ms=k3["bf16"]["bound_ms"], bound_by=k3["bf16"]["bound_by"], library_ms=None,
-             gemm_ms=k3["bf16"]["gemm_ms"]),
+             gemm_ms=k3["bf16"]["gemm_ms"],
+             stream_launches=k3_stream["launches"], stream_ms_per_launch=k3_stream["ms_per_launch"],
+             stream_event_ms_per_launch=k3_stream["event_ms_per_launch"]),
     ]
     log(f"[k1] popcount mode at the same shape: {json.dumps(k1['popcount'])} [{card}]")
     log(f"[k3] int8 operands at the same shape: {json.dumps(k3['int8'])} [{card}]")

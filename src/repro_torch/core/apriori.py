@@ -62,11 +62,21 @@ class AprioriResult:
     """k -> (itemsets (F_k, k) int32, supports (F_k,) int64).
 
     Built by :func:`mine`, or directly from another miner's ``levels`` dict
-    of numpy arrays (e.g. the JAX package's result)."""
+    of numpy arrays (e.g. the JAX package's result).
+
+    ``fault_report`` is set only by the fault-tolerant SON executor
+    (``streaming.mine_son_streamed(fault=...)``): what the retrying work
+    queue did — retries, speculative copies, skipped partitions.
+    """
 
     levels: dict
     num_transactions: int
     min_count: int
+    fault_report: object | None = dataclasses.field(default=None, compare=False)
+    # the full pre-prune SON phase-2 union with exact counts, k -> (cands,
+    # counts): set only by mine_son_streamed(collect_union=True), the raw
+    # material of the incremental count cache
+    union_counts: dict | None = dataclasses.field(default=None, compare=False)
 
     def frequent(self, k: int) -> np.ndarray:
         return self.levels[k][0] if k in self.levels else np.zeros((0, k), np.int32)
@@ -133,21 +143,36 @@ def make_count_step(cfg: AprioriConfig) -> Callable:
 
 def place_db(t_np: np.ndarray, cfg: AprioriConfig, device="cuda") -> torch.Tensor:
     """Encode the dense {0,1} DB and place it on ``device`` ONCE for the
-    whole mine.
+    whole mine: one int8 copy to the device, then the encoding there.
 
-    Dense: (N, k3.item_width(I)) in the operand dtype — one int8 copy to the
-    device, then the zero-column pad and the cast there (the JAX wrapper
-    casts and pads the whole DB on every pass instead).
-    Packed: an (N, W) int32 view of the uint32 bitset words.
+    Dense: (N, k3.item_width(I)) in the operand dtype — the zero-column pad
+    and the cast (the JAX wrapper casts and pads the whole DB on every pass
+    instead).
+    Packed: (N, W) int32 views of the uint32 bitset words, packed by
+    ``ops.pack_bits_device`` and handed to :func:`place_words`.
     """
     dev = resolve_device(device)
     _check_cfg(cfg)
     t_np = np.asarray(t_np, dtype=np.int8)
-    if cfg.representation == "packed":
-        return torch.from_numpy(enc.pack_bits(t_np).view(np.int32)).to(dev)
     t = torch.from_numpy(t_np).to(dev)
+    if cfg.representation == "packed":
+        return place_words(kops.pack_bits_device(t), t_np.shape[1], cfg)
     t = torch.nn.functional.pad(t, (0, k3.item_width(t_np.shape[1]) - t_np.shape[1]))
     return t.to(k3.DTYPES[cfg.operand_dtype][1])
+
+
+def place_words(words: torch.Tensor, num_items: int, cfg: AprioriConfig) -> torch.Tensor:
+    """The count step's transaction operand from packed (R, W) int32 word
+    views already on the device — a whole DB or one streamed chunk.
+
+    Packed: the words as they are.  Dense: unpacked there to
+    (R, k3.item_width(I)) {0,1} in the operand dtype, so the host never
+    unpacks and a chunk crosses to the card at 4·W bytes a row.
+    """
+    if cfg.representation == "packed":
+        return words
+    return kops.unpack_bits_device(words, num_items, k3.item_width(num_items),
+                                   k3.DTYPES[cfg.operand_dtype][1])
 
 
 def _candidate_quantum(cfg: AprioriConfig) -> int:

@@ -21,6 +21,8 @@ kernel, and nowhere else.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.kernels import ref
@@ -31,17 +33,26 @@ MODES = ("and_cmp", "popcount")
 
 DENSE_DTYPES = tuple(dtype for _, dtype in k3.DTYPES.values())
 MAX_DENSE_ITEMS = 1 << 24  # bf16 sums stay exact integers in float32 below this
+PACK_ROWS = 1 << 16        # rows packed at once by pack_bits_device
 
 LAUNCHES = {"support_count_packed": 0, "rule_match": 0, "support_count": 0}
+_LAUNCHES_LOCK = threading.Lock()  # SON's phase-1 mappers launch from several threads
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def launch_counts() -> dict:
-    return dict(LAUNCHES)
+    with _LAUNCHES_LOCK:
+        return dict(LAUNCHES)
+
+
+def _count_launch(name: str) -> None:
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _use_kernel(impl: str, device: torch.device, name: str) -> bool:
@@ -93,7 +104,7 @@ def support_count_packed(t_packed, c_packed, lengths, *, impl: str = "auto", mod
     from repro_torch.kernels import support_count_packed as k1
 
     out = k1.launch(t_packed, c_packed, lengths, mode)
-    LAUNCHES["support_count_packed"] += 1
+    _count_launch("support_count_packed")
     return out
 
 
@@ -111,16 +122,44 @@ def pack_bits_device(dense: torch.Tensor, num_items: int | None = None) -> torch
     The JAX package sums the shifted bits in uint32, which wraps at 32 bits;
     a torch sum would widen (F3).  Here the bits are OR-ed into int32 words,
     so a word with bit 31 set holds the same 32 bits (negative in the view).
+    Rows go in blocks of :data:`PACK_ROWS`, so the int32 widening of the
+    bits never holds more than a block (the whole DB's would take 8 bytes a
+    cell on the device).
     """
     r, i = dense.shape
     if num_items is not None and num_items != i:
         raise ValueError(f"pack_bits_device: {i} item columns, expected {num_items}")
     words = (i + 31) // 32
-    bits = torch.nn.functional.pad(dense.to(torch.int32), (0, words * 32 - i)).reshape(r, words, 32)
     out = torch.zeros((r, words), dtype=torch.int32, device=dense.device)
-    for b in range(32):
-        out |= bits[:, :, b] << b
+    for start in range(0, r, PACK_ROWS):
+        block = dense[start : start + PACK_ROWS]
+        bits = torch.nn.functional.pad(block.to(torch.int32), (0, words * 32 - i))
+        bits = bits.reshape(block.shape[0], words, 32)
+        acc = out[start : start + PACK_ROWS]
+        for b in range(32):
+            acc |= bits[:, :, b] << b
     return out
+
+
+def unpack_bits_device(words: torch.Tensor, num_items: int, width: int | None = None,
+                       dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    """Packed (R, W) int32 word views -> dense {0,1} (R, width) in ``dtype``
+    on the words' device: the torch twin of ``core.itemsets.unpack_bits``,
+    and the inverse of :func:`pack_bits_device`.
+
+    Columns ``[num_items, width)`` are zero whatever the words hold past
+    ``num_items``; ``width`` defaults to ``num_items`` and may be below or
+    above ``32·W`` (the dense count step takes ``support_count.item_width``).
+    Each bit is ``(word >> b) & 1``: on an int32 view the shift is arithmetic,
+    so the mask is what keeps a word with bit 31 set exact (F2).
+    """
+    r, w = words.shape
+    width = num_items if width is None else width
+    if not 0 <= num_items <= 32 * w or width < num_items:
+        raise ValueError(f"unpack_bits_device: {num_items} items from {w} words into {width} columns")
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = ((words[:, :, None] >> shifts) & 1).reshape(r, 32 * w)[:, :num_items].to(dtype)
+    return torch.nn.functional.pad(bits, (0, width - num_items))
 
 
 def support_count(t_dense, c_dense, lengths, *, impl: str = "auto", operand_dtype: str = "bf16"):
@@ -159,7 +198,7 @@ def support_count(t_dense, c_dense, lengths, *, impl: str = "auto", operand_dtyp
         raise ValueError(f"support_count: the kernel takes an item axis padded to a multiple of "
                          f"{k3.ITEM_MULTIPLE} (support_count.item_width), got {i}")
     out = k3.launch(t_dense, c_dense, lengths, operand_dtype)
-    LAUNCHES["support_count"] += 1
+    _count_launch("support_count")
     return out
 
 
@@ -192,5 +231,5 @@ def rule_match(b_packed, a_packed, lengths, c_packed, scores, *, num_items: int 
     from repro_torch.kernels import rule_match as k2
 
     out = k2.launch(b_packed, a_packed, lengths, c_packed, scores)
-    LAUNCHES["rule_match"] += 1
+    _count_launch("rule_match")
     return out[:, :items]

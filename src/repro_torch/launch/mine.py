@@ -10,9 +10,18 @@
   PYTHONPATH=src python -m repro_torch.launch.mine ... --representation packed
   # on the CPU (plain versions of the kernels):
   PYTHONPATH=src python -m repro_torch.launch.mine ... --device cpu
+  # out of core: ingest into an on-disk store, stream-mine it with
+  # checkpoints every 4 chunks, then resume from the newest checkpoint:
+  PYTHONPATH=src python -m repro_torch.launch.mine ... --store DIR --ingest \
+      --stream-chunk-rows 8192 --shard-rows 12500 --checkpoint-every 4
+  PYTHONPATH=src python -m repro_torch.launch.mine ... --store DIR --checkpoint-every 4 --resume
+  # streamed SON with the retrying phase-1 executor:
+  PYTHONPATH=src python -m repro_torch.launch.mine ... --store DIR --algo son \
+      --max-partition-retries 1
 
-The in-memory paths: level-wise, SON and the paper's all-subsets map, over
-dense or packed transactions.  The last line is the same JSON object the
+Level-wise, SON and the paper's all-subsets map, over dense or packed
+transactions, in memory or (``--store``) streamed from an on-disk store
+that either package may have written.  The last line is the same JSON object the
 JAX package's mine CLI prints (``seconds``, ``total_frequent``,
 ``levels``), so the two can be diffed.
 """
@@ -21,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 
@@ -47,7 +57,30 @@ def main(argv=None):
                     help="rulebook serving score column")
     ap.add_argument("--max-rules", type=int, default=None,
                     help="truncate the rulebook to the top-scoring rules")
+    ap.add_argument("--store", default="", metavar="DIR",
+                    help="on-disk transaction store: mine out of core through the "
+                         "streaming miner (ingested here if absent)")
+    ap.add_argument("--ingest", action="store_true",
+                    help="force (re-)ingest of the synthetic DB into --store")
+    ap.add_argument("--stream-chunk-rows", type=int, default=8192,
+                    help="rows per streamed chunk (bounds host RAM during mining)")
+    ap.add_argument("--shard-rows", type=int, default=8192,
+                    help="rows per on-disk shard at ingest (= SON partition size)")
+    ap.add_argument("--checkpoint-every", type=int, default=0, metavar="CHUNKS",
+                    help="streamed mining: persist a resumable checkpoint next to the "
+                         "store manifest every N chunks (and at level boundaries)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume the streamed mine from the newest committed checkpoint "
+                         "in the store's checkpoint dir")
+    ap.add_argument("--max-partition-retries", type=int, default=None, metavar="N",
+                    help="SON streamed phase 1: run shard mappers through the retrying "
+                         "executor with N re-executions per partition")
     args = ap.parse_args(argv)
+
+    if (args.checkpoint_every or args.resume) and not args.store:
+        ap.error("--checkpoint-every/--resume need the streamed miner: add --store DIR")
+    if args.max_partition_retries is not None and not (args.store and args.algo == "son"):
+        ap.error("--max-partition-retries needs --store DIR and --algo son")
 
     from repro_torch.core.apriori import AprioriConfig, mine
     from repro_torch.core.rules import extract_rules
@@ -58,13 +91,46 @@ def main(argv=None):
     device = resolve_device(args.device)
     qcfg = QuestConfig(num_transactions=args.transactions, num_items=args.items,
                        avg_len=args.avg_len, seed=args.seed)
-    print(f"[mine] generating {args.transactions} transactions x {args.items} items ...")
-    db = gen_transactions(qcfg)
+    db = store = None
+    if args.store:
+        from repro_torch.data.store import MANIFEST_NAME, ingest_quest, open_store
+
+        if args.ingest or not os.path.exists(os.path.join(args.store, MANIFEST_NAME)):
+            print(f"[mine] ingesting {args.transactions} x {args.items} (chunked) -> {args.store} ...")
+            store = ingest_quest(qcfg, args.store, shard_rows=args.shard_rows,
+                                 chunk_rows=args.stream_chunk_rows)
+        else:
+            store = open_store(args.store)
+        print(f"[mine] store: n={store.num_transactions} items={store.num_items} "
+              f"shards={store.num_partitions}")
+    else:
+        print(f"[mine] generating {args.transactions} transactions x {args.items} items ...")
+        db = gen_transactions(qcfg)
     cfg = AprioriConfig(min_support=args.min_support, max_k=args.max_k, count_impl=args.impl,
                         representation=args.representation, use_naive_paper_map=(args.algo == "naive_paper"))
 
     t0 = time.time()
-    if args.algo == "son":
+    if store is not None:
+        from repro_torch.core.streaming import mine_son_streamed, mine_streamed
+
+        if args.algo == "son":
+            fault = None
+            if args.max_partition_retries is not None:
+                from repro_torch.distributed.fault_tolerance import FaultConfig
+
+                fault = FaultConfig(max_retries=args.max_partition_retries)
+            res = mine_son_streamed(store, cfg, device=device, chunk_rows=args.stream_chunk_rows,
+                                    fault=fault)
+            if res.fault_report is not None:
+                print(f"[mine] SON fault report: {json.dumps(res.fault_report.to_json())}")
+        else:
+            use_ckpt = bool(args.checkpoint_every) or args.resume
+            if args.resume:
+                print(f"[mine] resuming from {store.checkpoint_path} (if a committed checkpoint exists)")
+            res = mine_streamed(store, cfg, device=device, chunk_rows=args.stream_chunk_rows,
+                                checkpoint=True if use_ckpt else None,
+                                checkpoint_every_chunks=args.checkpoint_every, resume=args.resume)
+    elif args.algo == "son":
         res = mine_son(db, cfg, device=device, num_partitions=args.partitions)
     else:
         res = mine(db, cfg, device=device)
@@ -88,7 +154,7 @@ def main(argv=None):
 
         rb = compile_rulebook(
             res, min_confidence=args.min_confidence, score=args.rule_score,
-            max_rules=args.max_rules, num_items=args.items,
+            max_rules=args.max_rules, num_items=store.num_items if store else args.items,
         )
         rb.save(args.rulebook)
         print(f"[rulebook] {rb.num_rules} rules ({rb.num_rows} padded rows, "

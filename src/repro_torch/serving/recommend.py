@@ -63,7 +63,10 @@ def make_match_step(*, impl: str = "auto"):
 
 def _to_device(blk: np.ndarray, device) -> torch.Tensor:
     """One batch of int32 basket words onto the rulebook's device (H2D)."""
-    return torch.from_numpy(np.ascontiguousarray(blk)).to(device)
+    blk = np.ascontiguousarray(blk)
+    if not blk.flags.writeable:   # e.g. rows of a store shard's read-only mmap
+        blk = blk.copy()
+    return torch.from_numpy(blk).to(device)
 
 
 def _to_host(idx: torch.Tensor, vals: torch.Tensor, m: int):

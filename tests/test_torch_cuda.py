@@ -381,3 +381,145 @@ def test_chain_through_kernels(cuda):
     assert ops.launch_counts()["rule_match"] == before + 3
     want = recommend_python(rb, db[:300], top_k=5)
     np.testing.assert_allclose(out.scores, want.scores, rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------------------------- out of core ---
+def _stream_db(n=20_000, i=300, seed=21):
+    rng = np.random.default_rng(seed)
+    return (rng.random((n, i)) < 0.05).astype(np.int8)
+
+
+def _stream_cands(i=300, seed=22):
+    rng = np.random.default_rng(seed)
+    pairs = np.sort(rng.choice(i, size=(3000, 2)), axis=1)
+    triples = np.sort(rng.choice(i, size=(700, 3)), axis=1)
+    return [pairs.astype(np.int32), triples.astype(np.int32)]
+
+
+def _in_memory_counts(db, cands, cfg, dev):
+    from repro_torch.core import apriori
+
+    t_dev = apriori.place_db(db, cfg, dev)
+    return apriori._count_level(apriori.make_count_step(cfg), t_dev, cands, db.shape[1], cfg)
+
+
+@pytest.mark.parametrize("prefetch", [1, 2, 4])
+def test_pipeline_chunks_equal_host_chunks(cuda, prefetch):
+    """Every chunk the pinned pipeline hands out equals its host array, read
+    on the consumer's stream right after it arrives, while the next copies
+    out of the ring of pinned buffers are in flight."""
+    from repro_torch.data.pipeline import ShardedBatchIterator
+
+    rng = np.random.default_rng(prefetch)
+    host = [rng.integers(-2**31, 2**31 - 1, size=(4096, 32), dtype=np.int32) for _ in range(64)]
+    with ShardedBatchIterator(iter(host), cuda, prefetch=prefetch) as it:
+        got = [chunk.sum(dtype=torch.int64) for chunk in it]
+    want = [int(h.sum(dtype=np.int64)) for h in host]
+    assert [int(g) for g in got] == want
+
+
+@pytest.mark.parametrize("prefetch", [1, 2, 4])
+@pytest.mark.parametrize("representation", ["packed", "dense"])
+def test_streamed_counts_equal_kernel_counts(cuda, tmp_path, prefetch, representation):
+    """Every streamed count, through the pinned pipeline and K1 / K3 at
+    chunk shapes, equals the in-memory kernel count of the same candidates."""
+    from repro_torch.core import streaming
+    from repro_torch.core.apriori import AprioriConfig
+    from repro_torch.data.store import ingest_dense
+
+    db = _stream_db()
+    store = ingest_dense(db, str(tmp_path / "db"), shard_rows=4_500)
+    cfg = AprioriConfig(representation=representation, candidate_pad=256)
+    for cands in _stream_cands():
+        want = _in_memory_counts(db, cands, cfg, cuda)
+        kernel = "support_count_packed" if representation == "packed" else "support_count"
+        before = ops.launch_counts()[kernel]
+        got = streaming.count_supports_streamed(store, cands, cfg, device=cuda, chunk_rows=1_000,
+                                                prefetch=prefetch)
+        np.testing.assert_array_equal(got, want)
+        assert ops.launch_counts()[kernel] - before == 20
+
+
+def test_pipeline_close_mid_pass_then_fresh_pass(cuda, tmp_path):
+    """close() in the middle of a pass, with copies in flight, joins the
+    worker and waits for the copies; a fresh pass then counts right."""
+    from repro_torch.core import streaming
+    from repro_torch.core.apriori import AprioriConfig
+    from repro_torch.data.pipeline import ShardedBatchIterator
+    from repro_torch.data.store import ingest_dense
+
+    db = _stream_db()
+    store = ingest_dense(db, str(tmp_path / "db"), shard_rows=4_500)
+    big = (np.full((1 << 16, 64), v, dtype=np.int32) for v in range(1_000))
+    it = ShardedBatchIterator(big, cuda, prefetch=4)
+    first = next(it)
+    assert int(first[0, 0]) == 0
+    it.close()
+    assert not it._thread.is_alive()
+    assert list(it) == []
+    cfg = AprioriConfig(representation="packed")
+    cands = _stream_cands()[0]
+    got = streaming.count_supports_streamed(store, cands, cfg, device=cuda, chunk_rows=777)
+    np.testing.assert_array_equal(got, _in_memory_counts(db, cands, cfg, cuda))
+
+
+@pytest.mark.parametrize("rows", [1, 127, 6_000, 8_192])
+@pytest.mark.parametrize("operand_dtype", ["bf16", "int8"])
+def test_k3_at_chunk_rows(cuda, rows, operand_dtype):
+    """K3 on a streamed chunk's operand (packed words unpacked on the card
+    by ``place_words``) at chunk row counts that are not multiples of its
+    256-row tile, against its plain version."""
+    from repro_torch.core import apriori
+    from repro_torch.kernels import support_count as k3
+
+    rng = np.random.default_rng(rows)
+    t = (rng.random((rows, 1000)) < 0.3).astype(np.int8)
+    if rows > 1:
+        t[-1] = 0   # a zero-padded row
+    _, c, lengths = _dense_problem((1, 1000, 3000), seed=rows)
+    cfg = apriori.AprioriConfig(operand_dtype=operand_dtype)
+    x = apriori.place_words(_words(pack_bits(t), cuda), 1000, cfg)
+    assert x.shape == (rows, 1024) and x.dtype == k3.DTYPES[operand_dtype][1]
+    cc = torch.from_numpy(np.pad(c, ((0, 0), (0, 24)))).to(cuda).to(x.dtype)
+    ln = torch.from_numpy(lengths).to(cuda)
+    got = ops.support_count(x, cc, ln, operand_dtype=operand_dtype, impl="kernel")
+    want = ops.support_count(x, cc, ln, impl="ref")
+    assert torch.equal(got, want)
+
+
+def test_device_packing_and_unpacking_byte_equal(cuda):
+    """Item (a) on the card: the packed ``place_db`` equals host
+    ``pack_bits``; ``unpack_bits_device`` inverts it at I = 1, 31, 33, 1000."""
+    from repro_torch.core import apriori
+    from repro_torch.core.itemsets import unpack_bits
+
+    for i in (1, 31, 33, 1000):
+        db = (np.random.default_rng(i).random((3000, i)) < 0.4).astype(np.int8)
+        words = apriori.place_db(db, apriori.AprioriConfig(representation="packed"), cuda)
+        assert np.array_equal(words.cpu().numpy().view(np.uint32), pack_bits(db))
+        assert np.array_equal(ops.unpack_bits_device(words, i).cpu().numpy(),
+                              unpack_bits(pack_bits(db), i))
+
+
+def test_streamed_mines_through_kernels(cuda, tmp_path):
+    """mine_streamed (packed, dense), mine_son_streamed through the retrying
+    executor with two mapper threads, and a resumed mine are dict-identical
+    to the in-memory mine on the card."""
+    from repro_torch.core import streaming
+    from repro_torch.core.apriori import AprioriConfig, mine
+    from repro_torch.data.store import ingest_quest
+    from repro_torch.data.synthetic import QuestConfig, gen_transactions
+    from repro_torch.distributed.fault_tolerance import FaultConfig
+
+    qcfg = QuestConfig(num_transactions=6000, num_items=120, avg_len=8, seed=5)
+    store = ingest_quest(qcfg, str(tmp_path / "db"), shard_rows=1_500)
+    want = mine(gen_transactions(qcfg), AprioriConfig(min_support=0.02, max_k=4), device="cpu").as_dict()
+    for rep in ("packed", "dense"):
+        cfg = AprioriConfig(min_support=0.02, max_k=4, representation=rep)
+        assert streaming.mine_streamed(store, cfg, chunk_rows=1_000).as_dict() == want
+        son = streaming.mine_son_streamed(store, cfg, chunk_rows=1_000, fault=FaultConfig(max_workers=2))
+        assert son.as_dict() == want and son.fault_report.completed == 4
+        streaming.mine_streamed(store, cfg, chunk_rows=1_000, checkpoint=True, checkpoint_every_chunks=2)
+        resumed = streaming.mine_streamed(store, cfg, chunk_rows=1_000, checkpoint=True,
+                                          checkpoint_every_chunks=2, resume=True)
+        assert resumed.as_dict() == want
