@@ -50,9 +50,11 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -376,7 +378,6 @@ def k2_main_shape(ops, rb, b_words, dev, card):
     """K2 at the main path's batch: 1024 baskets against the mined rulebook,
     then 1024 baskets that hold every item."""
     from repro_torch.core.itemsets import pack_bits
-    from repro_torch.kernels import ref
 
     b = words(b_words, dev)
     args = (b, rb.ante_packed, rb.ante_len, rb.cons_packed, rb.scores)
@@ -388,23 +389,8 @@ def k2_main_shape(ops, rb, b_words, dev, card):
     nb, w = b.shape
     r = rb.ante_packed.shape[0]
     dense_flops = 2 * nb * r * 32 * w
-    # what these inputs need: a word test per antecedent word that holds a
-    # bit, and two flops per (matched rule, consequent item)
+    bound_ms, bound_by, per_basket, needed_tests, needed_flops, byte_count = k2_bound(rb, b)
     valid = rb.ante_len >= 0
-    needed_tests = nb * int(((rb.ante_packed != 0).sum(1) * valid).sum().item())
-    cons_items = ref.popcount32(rb.cons_packed).sum(1).to(torch.float32)
-    matched_items = 0.0
-    per_basket = []
-    for b0 in range(0, nb, 64):
-        blk = b[b0 : b0 + 64]
-        hit = ((blk[:, None, :] & rb.ante_packed[None]) == rb.ante_packed[None]).all(-1) & valid
-        matched_items += float((hit.to(torch.float32) @ cons_items).sum().item())
-        per_basket.append(hit.sum(1))
-    per_basket = torch.cat(per_basket).to(torch.float64)
-    needed_flops = 2 * matched_items
-    byte_count = 4 * (nb * w + 2 * r * w + 2 * r + nb * 32 * w)
-    ops_ms = max(needed_tests / INT32_OP_PER_S, needed_flops / FP32_FLOP_PER_S) * 1e3
-    bound_ms, bound_by = bound(byte_count, ops_ms)
     err = float((got - want).abs().max().item())
     log(f"[k2] B={nb} R={r} W={w}: max |kernel - plain| {err:.3e}, bit-identical across runs and to "
         f"rule_match_ordered on all {nb} baskets (checks took {check_s:.1f} s); kernel {ms:.4f} ms, "
@@ -718,7 +704,10 @@ def recommend_breakdown(rb, baskets, card):
     more with its phases timed: each batch's H2D copy, match step (host wall,
     and K2's device time by CUDA events), top-k sort and D2H copy.  Each timed
     phase synchronises before and after, so the phases do not overlap."""
-    from repro_torch.serving import recommend as rec_mod
+    import importlib
+
+    # the package re-exports a function named ``recommend``, which shadows the module
+    rec_mod = importlib.import_module("repro_torch.serving.recommend")
 
     t0 = time.perf_counter()
     packed = rec_mod.pack_baskets(baskets, rb.num_items)
@@ -1034,6 +1023,549 @@ def stream_resume_phase(streaming, ops, store, cfg, res, dev, card):
     log("[stream-resume] dict-identical to the in-memory packed mine")
 
 
+# ------------------------------------------------------------ serving -------
+REQUESTS = 4_096          # the store's first 4,096 rows, one basket a request
+CLIENTS = 16              # closed-loop client threads
+LADDER = (1, 2, 4, 8, 16, 32, 64)   # Gateway(max_batch=64, warmup="ladder")
+APPEND_FRACTION = 0.05    # 5% of the store's rows, as the serve CLI appends
+
+
+def drive_clients(submit, n, mid=None):
+    """``n`` single-basket requests from ``CLIENTS`` closed-loop threads
+    (client c sends requests c, c + 16, ...); ``mid()`` runs between the
+    first and the second half.  Returns (responses by request, counts of
+    each typed failure, wall s)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.serving import AdmissionRejected, DeadlineExceeded, WorkerCrashed
+
+    out = [None] * n
+    failed = {"rejected": 0, "crashed": 0, "expired": 0}
+    kinds = {AdmissionRejected: "rejected", WorkerCrashed: "crashed", DeadlineExceeded: "expired"}
+    lock = threading.Lock()
+
+    def client(indices):
+        for i in indices:
+            try:
+                out[i] = submit(i).result(timeout=120)
+            except tuple(kinds) as e:
+                with lock:
+                    failed[kinds[type(e)]] += 1
+
+    def fire(lo, hi, pool):
+        for f in [pool.submit(client, range(lo + c, hi, CLIENTS)) for c in range(CLIENTS)]:
+            f.result()
+
+    half = n // 2 if mid is not None else n
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=CLIENTS) as pool:
+        fire(0, half, pool)
+        if mid is not None:
+            mid()
+            fire(half, n, pool)
+    return out, failed, time.perf_counter() - t0
+
+
+def check_responses(tag, out, want_by_gen):
+    """Every response bit for bit its generation's ``recommend`` of the
+    same basket; returns the generations seen."""
+    gens = set()
+    for i, r in enumerate(out):
+        if r is None:
+            continue
+        want = want_by_gen[r.generation]
+        if not (np.array_equal(r.items, want.items[i])
+                and np.array_equal(r.scores.view(np.uint32), want.scores[i].view(np.uint32))):
+            raise AssertionError(f"[{tag}] request {i} (generation {r.generation}, bucket {r.bucket}) "
+                                 "differs from its generation's recommend")
+        gens.add(r.generation)
+    return sorted(gens)
+
+
+class WarmCalls:
+    """Within ``with``: counts ``Gateway._warm`` calls (one bucket ladder of
+    K2 launches each)."""
+
+    def __enter__(self):
+        from repro_torch.serving.gateway import Gateway
+
+        self.cls, self.fn, self.calls = Gateway, Gateway._warm, 0
+
+        def counted(gw, gen):
+            self.calls += 1
+            return self.fn(gw, gen)
+
+        Gateway._warm = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._warm = self.fn
+
+
+def k2_bound(rb, b):
+    """(bound_ms, bound_by, matched rules per basket) of one K2 launch on
+    baskets ``b`` (B, W) int32 against the placed rulebook ``rb``: the
+    bytes read once and written once, or the work these inputs need (a
+    word test per antecedent word holding a bit, two flops per matched
+    (rule, consequent item)), whichever takes longer."""
+    from repro_torch.kernels import ref
+
+    nb, w = b.shape
+    r = rb.ante_packed.shape[0]
+    valid = rb.ante_len >= 0
+    needed_tests = nb * int(((rb.ante_packed != 0).sum(1) * valid).sum().item())
+    cons_items = ref.popcount32(rb.cons_packed).sum(1).to(torch.float32)
+    matched_items, per_basket = 0.0, []
+    for b0 in range(0, nb, 64):
+        blk = b[b0 : b0 + 64]
+        hit = ((blk[:, None, :] & rb.ante_packed[None]) == rb.ante_packed[None]).all(-1) & valid
+        matched_items += float((hit.to(torch.float32) @ cons_items).sum().item())
+        per_basket.append(hit.sum(1))
+    byte_count = 4 * (nb * w + 2 * r * w + 2 * r + nb * 32 * w)
+    ops_ms = max(needed_tests / INT32_OP_PER_S, 2 * matched_items / FP32_FLOP_PER_S) * 1e3
+    bound_ms, bound_by = bound(byte_count, ops_ms)
+    return bound_ms, bound_by, torch.cat(per_basket).to(torch.float64), needed_tests, 2 * matched_items, byte_count
+
+
+def k2_buckets(ops_, gw, packed, card):
+    """K2 at buckets 1, 8 and 64 of the gateway's generation: the launch's
+    time by CUDA events, its two CUDA kernels (rule compaction over every
+    rulebook row, then match and fan-out) by the profiler, and its bound."""
+    gen = gw._generation
+    rb = gen.rulebook
+    out = {}
+    for bucket in (1, 8, 64):
+        b = words(packed[:bucket], rb.device)
+        args = (b, rb.ante_packed, rb.ante_len, rb.cons_packed, rb.scores)
+        reps = 50
+        ops_.rule_match(*args, impl="kernel")
+        ms = cuda_ms(lambda: ops_.rule_match(*args, impl="kernel"), reps)
+        _, times = device_profile(lambda: [ops_.rule_match(*args, impl="kernel") for _ in range(reps)])
+        split = {name: sum(t for key, (t, _) in times.items() if kernel_name(key) == name) / reps
+                 for name in K2_KERNELS}
+        bound_ms, bound_by, per_basket, tests, flops, byte_count = k2_bound(rb, b)
+        match_ms = cuda_ms(lambda: gw._match(packed[:bucket], gen, 10), 20)
+        out[bucket] = dict(ms=ms, compact_ms=split["compact_rules_kernel"], match_ms=split["rule_match_kernel"],
+                           bound_ms=bound_ms, bound_by=bound_by, gateway_match_ms=match_ms)
+        log(f"[gateway] K2 at bucket {bucket}: {ms:.4f} ms a launch (CUDA events, 50 launches); profiler "
+            f"{split['compact_rules_kernel']:.4f} ms rule compaction over all {rb.num_rows} rows + "
+            f"{split['rule_match_kernel']:.4f} ms match and fan-out; bound {bound_ms:.5f} ms ({bound_by}: "
+            f"{byte_count:.3e} B, {tests:.3e} word tests, {flops:.3e} flop; matched rules per basket mean "
+            f"{per_basket.mean().item():.1f}); the gateway's whole match step (H2D, K2, top-k, D2H) "
+            f"{match_ms:.4f} ms [{card}]")
+    return out
+
+
+def gateway_phase(ops_, rb, packed, want, dev, card):
+    """``[gateway]``: ``Gateway(rb, device="cuda", warmup="ladder",
+    max_batch=64, top_k=10)`` answering the store's first 4,096 rows, one
+    a request, from 16 closed-loop clients; every response bit for bit the
+    port's ``recommend`` of its basket, K2 launched the ladder's 7 warm
+    launches plus once per batch."""
+    from repro_torch.core.itemsets import unpack_bits
+    from repro_torch.serving import Gateway
+
+    ops_.reset_launch_counts()
+    t0 = time.perf_counter()
+    gw = Gateway(rb, device=dev, warmup="ladder", max_batch=64, top_k=10)
+    warm_s = time.perf_counter() - t0
+    warm = ops_.launch_counts()["rule_match"]
+    try:
+        out, failed, wall = drive_clients(lambda i: gw.submit(packed[i]), REQUESTS)
+        launches = ops_.launch_counts()["rule_match"]
+        stats = gw.stats()
+        responses = sum(r is not None for r in out)
+        log(f"[gateway] {responses} responses ({failed}) in {wall:.3f} s = {responses / wall:.0f} qps from "
+            f"{CLIENTS} clients; registry p50 {stats['latency']['p50_ms']:.3f} ms, p99 "
+            f"{stats['latency']['p99_ms']:.3f} ms; {stats['batches']} batches, occupancy "
+            f"{stats['batch_occupancy']:.3f} ({stats['batch_rows_real']} real of {stats['batch_rows_padded']} "
+            f"padded rows), cache hits {stats['cache_hits']}; warm ladder {warm_s:.3f} s; K2 launched "
+            f"{launches} times ({warm} warm) [{card}]")
+        if responses + sum(failed.values()) != REQUESTS or failed["rejected"] or responses != REQUESTS:
+            raise AssertionError(f"[gateway] {responses} responses and {failed} for {REQUESTS} requests")
+        if warm != len(LADDER) or launches != warm + stats["batches"]:
+            raise AssertionError(f"[gateway] K2 launched {launches} times: {warm} warm + {stats['batches']} batches")
+        buckets = sorted({r.bucket for r in out})
+        if check_responses("gateway", out, {0: want}) != [0]:
+            raise AssertionError("[gateway] generations other than 0 answered")
+        log(f"[gateway] every response bit for bit the port's recommend of its basket, at buckets {buckets}")
+        # the same load again, warm, under the profiler: the device's busy share
+        # (the repeats would be cache hits, so the cache is emptied first)
+        gw.cache.evict_generation(0)
+        prof_wall, times = device_profile(lambda: drive_clients(lambda i: gw.submit(packed[i]), REQUESTS))
+        busy = sum(ms for ms, _ in times.values())
+        k2_dev = sum(ms for key, (ms, _) in times.items() if kernel_name(key) in K2_KERNELS)
+        log(f"[gateway] profiled warm load {prof_wall:.3f} s: device busy {busy:.2f} ms = "
+            f"{busy / 1e3 / prof_wall:.4f} of the wall, of which K2 {k2_dev:.2f} ms [{card}]")
+        # host packing of an item-id basket, the gateway's _pack_one (item c)
+        ids = [np.flatnonzero(row).tolist() for row in unpack_bits(packed[:1024], rb.num_items)]
+        t0 = time.perf_counter()
+        for basket in ids:
+            gw._pack_one(basket)
+        pack_us = (time.perf_counter() - t0) / len(ids) * 1e6
+        log(f"[gateway] host packing of an item-id basket (_pack_one): {pack_us:.1f} us a request; the "
+            f"store's rows arrive packed [{card}]")
+        bucket_ms = k2_buckets(ops_, gw, packed, card)
+    finally:
+        gw.close()
+    return dict(launches=launches, warm=warm, batches=stats["batches"], qps=responses / wall,
+                busy_share=busy / 1e3 / prof_wall,
+                p50_ms=stats["latency"]["p50_ms"], p99_ms=stats["latency"]["p99_ms"],
+                occupancy=stats["batch_occupancy"], bucket_ms=bucket_ms, pack_us=pack_us)
+
+
+def gateway_swap_phase(streaming, ops_, store, rb, packed, want, dev, card):
+    """``[gateway-swap]``: the store mined again at ``min_support=0.004``
+    in a miner thread while the first half of the load runs, then
+    hot-swapped in: zero drops, generations [0, 1], each response its own
+    generation's ``recommend``."""
+    from repro_torch.core.apriori import AprioriConfig
+    from repro_torch.serving import Gateway
+    from repro_torch.serving.recommend import recommend
+    from repro_torch.serving.rulebook import compile_rulebook, place_rulebook
+
+    cfg2 = AprioriConfig(min_support=0.004, max_k=4, representation="packed")
+    box = {}
+
+    def miner():
+        t0 = time.perf_counter()
+        res2 = streaming.mine_streamed(store, cfg2, device=dev, chunk_rows=STREAM_CHUNK_ROWS)
+        box["rb"] = compile_rulebook(res2, min_confidence=0.4, score="confidence", num_items=store.num_items)
+        box["res"], box["s"] = res2, time.perf_counter() - t0
+
+    ops_.reset_launch_counts()
+    with WarmCalls() as warms:
+        gw = Gateway(rb, device=dev, warmup="ladder", max_batch=64, top_k=10)
+        try:
+            thread = threading.Thread(target=miner)
+
+            def mid():
+                thread.join(600)
+                t0 = time.perf_counter()
+                box["gen"] = gw.hot_swap(box["rb"])
+                box["swap_s"] = time.perf_counter() - t0
+
+            thread.start()
+            out, failed, wall = drive_clients(lambda i: gw.submit(packed[i]), REQUESTS, mid)
+            stats = gw.stats()
+        finally:
+            gw.close()
+    counts = ops_.launch_counts()
+    responses = sum(r is not None for r in out)
+    k1_want = expected_passes(box["res"], store.num_items, cfg2) * -(-store.num_transactions // STREAM_CHUNK_ROWS)
+    log(f"[gateway-swap] {responses} responses ({failed}) in {wall:.3f} s; mine at min_support 0.004 "
+        f"{box['s']:.3f} s ({box['rb'].num_rules} rules), hot_swap {box['swap_s']:.3f} s to generation "
+        f"{box['gen']}; launches {counts} ({warms.calls} warm ladders, {stats['batches']} batches) [{card}]")
+    if responses + sum(failed.values()) != REQUESTS or responses != REQUESTS:
+        raise AssertionError(f"[gateway-swap] dropped: {responses} responses, {failed}")
+    if counts["rule_match"] != warms.calls * len(LADDER) + stats["batches"] or warms.calls != 2:
+        raise AssertionError("[gateway-swap] K2 launches differ from the warm ladders plus the batches")
+    if counts["support_count_packed"] != k1_want:
+        raise AssertionError(f"[gateway-swap] K1 launched {counts['support_count_packed']} times, not {k1_want}")
+    rb2 = place_rulebook(box["rb"], dev)
+    want2 = recommend(rb2, packed[:REQUESTS], top_k=10, batch_size=1024, device=dev)
+    gens = check_responses("gateway-swap", out, {0: want, 1: want2})
+    if gens != [0, 1]:
+        raise AssertionError(f"[gateway-swap] generations {gens}")
+    log("[gateway-swap] zero drops; generations [0, 1]; every response its own generation's recommend")
+    return rb2, want2, dict(k2=counts["rule_match"], k1=counts["support_count_packed"])
+
+
+class DeltaLaunches:
+    """Within ``with``: the K1 launches a delta mine should make, from what
+    it ran — each phase-1 local mine's candidate passes, and each union
+    count's passes times its chunks over its shard range."""
+
+    def __init__(self, son_mod, streaming, store_path, cfg):
+        self.son_mod, self.streaming, self.path, self.cfg = son_mod, streaming, store_path, cfg
+        self.phase1 = self.union = 0
+        self.phase1_s = self.union_s = 0.0   # host wall in each, counts synced back
+        self.unions = []
+
+    def __enter__(self):
+        from repro_torch.core.apriori import AprioriResult
+        from repro_torch.data.store import open_store
+
+        mine_local, count_union = self.son_mod._mine_local, self.streaming.count_union_streamed
+        self.saved = (mine_local, count_union)
+
+        def local(t_np, min_count, cfg, device):
+            t0 = time.perf_counter()
+            levels = mine_local(t_np, min_count, cfg, device)
+            self.phase1_s += time.perf_counter() - t0
+            res = AprioriResult(levels=levels, num_transactions=t_np.shape[0], min_count=min_count)
+            self.phase1 += expected_passes(res, t_np.shape[1], cfg)
+            return levels
+
+        def union(store, per_level, *args, **kwargs):
+            s0, s1 = kwargs.get("shards") or (0, store.num_partitions)
+            rows = sum(open_store(self.path).manifest.shard_rows[s0:s1])
+            chunk_rows = kwargs.get("chunk_rows", 8192)
+            units = sum(math.ceil(np.asarray(c).shape[0] / self.cfg.max_candidates_per_pass)
+                        for c in per_level.values() if np.asarray(c).shape[0])
+            self.union += units * -(-rows // chunk_rows)
+            self.unions.append((s0, s1, {k: int(np.asarray(c).shape[0]) for k, c in per_level.items()}))
+            t0 = time.perf_counter()
+            out = count_union(store, per_level, *args, **kwargs)
+            self.union_s += time.perf_counter() - t0
+            return out
+
+        self.son_mod._mine_local, self.streaming.count_union_streamed = local, union
+        return self
+
+    def __exit__(self, *exc):
+        self.son_mod._mine_local, self.streaming.count_union_streamed = self.saved
+
+    @property
+    def expected(self):
+        return self.phase1 + self.union
+
+
+def append_rows(path, n, seed):
+    """Append ``n`` Quest rows of the store's shape (the serve CLI's append)."""
+    from repro_torch.data.store import append_chunks, open_store
+    from repro_torch.data.synthetic import QuestConfig, gen_transactions_chunked
+
+    aq = QuestConfig(num_transactions=n, num_items=open_store(path).num_items, avg_len=10.0, seed=seed)
+    return append_chunks(gen_transactions_chunked(aq, STREAM_CHUNK_ROWS), path)
+
+
+def delta_phase(streaming, son_mod, ops_, store, cfg, root, dev, card):
+    """``[delta]``: ``build_count_cache`` on a copy of the store, 5,000 rows
+    (5%, Quest seed 1) appended, then ``mine_delta``: mode ``delta``,
+    dict-identical to ``mine_streamed`` over the grown store, K1 launched
+    exactly as its phase-1 mines and union counts need."""
+    from repro_torch.core import incremental as inc
+    from repro_torch.data.store import open_store
+
+    path = os.path.join(root, "delta")
+    shutil.copytree(store.path, path)
+    ops_.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, cache = inc.build_count_cache(open_store(path), cfg, dev)
+    build_s = time.perf_counter() - t0
+    build_launches = ops_.launch_counts()["support_count_packed"]
+    append_n = int(APPEND_FRACTION * store.num_transactions)
+    append_rows(path, append_n, seed=1)
+    ops_.reset_launch_counts()
+    with DeltaLaunches(son_mod, streaming, path, cfg) as want:
+        t0 = time.perf_counter()
+        res, rep = inc.mine_delta(open_store(path), cfg, dev)
+        delta_s = time.perf_counter() - t0
+    launches = ops_.launch_counts()["support_count_packed"]
+    grown = open_store(path)
+    ops_.reset_launch_counts()
+    t0 = time.perf_counter()
+    full = streaming.mine_streamed(grown, cfg, device=dev, chunk_rows=STREAM_CHUNK_ROWS)
+    full_s = time.perf_counter() - t0
+    full_launches = ops_.launch_counts()["support_count_packed"]
+    log(f"[delta] build_count_cache {build_s:.3f} s ({cache.candidate_total()} cached candidates, K1 "
+        f"{build_launches} launches); appended {append_n} rows; mine_delta {delta_s:.3f} s: mode {rep.mode} "
+        f"({rep.reason}), {rep.delta_shards} new shard(s), {rep.cached_candidates} cached and "
+        f"{rep.novel_candidates} novel candidates, K1 launched {launches} times ({want.phase1} in phase-1 "
+        f"local mines, {want.union} in the union counts {want.unions}); phase-1 local mines "
+        f"{want.phase1_s:.3f} s, union counts {want.union_s:.3f} s, the rest (split, fold, cache write) "
+        f"{delta_s - want.phase1_s - want.union_s:.3f} s; full mine_streamed of the grown "
+        f"store {full_s:.3f} s ({full_launches} launches): delta / full = {delta_s / full_s:.3f} [{card}]")
+    if rep.mode != "delta":
+        raise AssertionError(f"[delta] mode {rep.mode} ({rep.reason})")
+    if launches != want.expected or launches == 0:
+        raise AssertionError(f"[delta] K1 launched {launches} times, expected {want.expected}")
+    if res.as_dict() != full.as_dict():
+        raise AssertionError("[delta] mine_delta differs from mine_streamed over the grown store")
+    log(f"[delta] dict-identical to mine_streamed over the grown store ({len(res.as_dict())} itemsets)")
+    return path, res, dict(launches=launches, build_launches=build_launches, delta_s=delta_s, full_s=full_s,
+                           build_s=build_s, phase1_s=want.phase1_s, union_s=want.union_s)
+
+
+def refresh_phase(streaming, son_mod, ops_, path, res0, cfg, packed, dev, card):
+    """``[refresh]``: a ``RefreshController`` in delta mode behind a live
+    gateway; 5% rows appended mid-load, the controller delta-mines and
+    swaps: zero drops, generations [0, 1], each response its generation's
+    ``recommend``, and the served rulebook the one compiled from a full
+    re-mine of the grown store."""
+    from repro_torch.data.store import open_store
+    from repro_torch.serving import Gateway, RefreshController
+    from repro_torch.serving.recommend import recommend
+    from repro_torch.serving.rulebook import compile_rulebook, place_rulebook
+
+    num_items = open_store(path).num_items
+    rb0 = place_rulebook(compile_rulebook(res0, min_confidence=0.4, num_items=num_items), dev)
+    want0 = recommend(rb0, packed[:REQUESTS], top_k=10, batch_size=1024, device=dev)
+    append_n = int(APPEND_FRACTION * open_store(path).num_transactions)
+    box = {}
+    ops_.reset_launch_counts()
+    with DeltaLaunches(son_mod, streaming, path, cfg) as want_k1, WarmCalls() as warms:
+        gw = Gateway(rb0, device=dev, warmup="ladder", max_batch=64, top_k=10)
+        ctl = RefreshController(path, gw, cfg, device=dev, chunk_rows=STREAM_CHUNK_ROWS, min_confidence=0.4,
+                                mode="delta", poll_interval_s=0.05).start()
+        try:
+            def mid():
+                age = gw.metrics.generation_age.value
+                append_rows(path, append_n, seed=2)
+                deadline = time.perf_counter() + 600
+                while not ctl.history and time.perf_counter() < deadline:
+                    time.sleep(0.02)
+                if not ctl.history:
+                    raise AssertionError(f"[refresh] no refresh in 600 s: {ctl.last_error!r}")
+                box["age_before"], box["age_after"] = age, gw.metrics.generation_age.value
+
+            out, failed, wall = drive_clients(lambda i: gw.submit(packed[i]), REQUESTS, mid)
+        finally:
+            ctl.stop()
+            gw.close()
+        served = gw._generation.rulebook
+        stats = gw.stats()
+    counts = ops_.launch_counts()
+    last = ctl.history[-1]
+    responses = sum(r is not None for r in out)
+    log(f"[refresh] {responses} responses ({failed}) in {wall:.3f} s; appended {append_n} rows mid-load; "
+        f"refresh {last['mode']} ({last['reason']}) {last['seconds']:.3f} s to generation {last['generation']} "
+        f"({last['rules']} rules, {last['novel_candidates']} novel candidates); generation age "
+        f"{box['age_before']:.3f} s -> {box['age_after']:.3f} s; launches {counts} (K1 expected "
+        f"{want_k1.expected}: {want_k1.phase1} phase 1 + {want_k1.union} union; K2 {warms.calls} warm "
+        f"ladders + {stats['batches']} batches) [{card}]")
+    if responses != REQUESTS or sum(failed.values()):
+        raise AssertionError(f"[refresh] dropped: {responses} responses, {failed}")
+    if last["mode"] != "delta" or len(ctl.history) != 1:
+        raise AssertionError(f"[refresh] history {ctl.history}")
+    if counts["support_count_packed"] != want_k1.expected:
+        raise AssertionError(f"[refresh] K1 launched {counts['support_count_packed']}, expected {want_k1.expected}")
+    if counts["rule_match"] != warms.calls * len(LADDER) + stats["batches"]:
+        raise AssertionError("[refresh] K2 launches differ from the warm ladders plus the batches")
+    full = streaming.mine_streamed(open_store(path), cfg, device=dev, chunk_rows=STREAM_CHUNK_ROWS)
+    want_rb = compile_rulebook(full, min_confidence=0.4, num_items=num_items)
+    got_rb = served.to_host()
+    for col in ("ante_packed", "cons_packed", "ante_len", "scores"):
+        if np.asarray(getattr(got_rb, col)).tobytes() != np.asarray(getattr(want_rb, col)).tobytes():
+            raise AssertionError(f"[refresh] served rulebook column {col} differs from the full re-mine's")
+    want1 = recommend(served, packed[:REQUESTS], top_k=10, batch_size=1024, device=dev)
+    gens = check_responses("refresh", out, {0: want0, 1: want1})
+    if gens != [0, 1]:
+        raise AssertionError(f"[refresh] generations {gens}")
+    log("[refresh] zero drops; generations [0, 1]; every response its generation's recommend; the served "
+        "rulebook column for column the one compiled from a full re-mine of the grown store")
+    return dict(seconds=last["seconds"], k1=counts["support_count_packed"], k2=counts["rule_match"])
+
+
+def router_phase(ops_, rb, rb2, packed, want, want2, dev, card):
+    """``[router]``: 3 replicas on the card behind the router; replica 0's
+    dispatch worker killed and a coordinated hot swap at half load: zero
+    drops, every replica healthy with equal generations at the end, each
+    response its generation's ``recommend``."""
+    from repro_torch.distributed import FaultConfig
+    from repro_torch.serving import Router
+
+    ops_.reset_launch_counts()
+    box = {}
+    with WarmCalls() as warms:
+        router = Router(rb, 3, device=dev, warmup="ladder", max_batch=64, top_k=10,
+                        fault=FaultConfig(max_retries=3, backoff_s=0.01), attempt_timeout_s=1.0)
+        try:
+            def mid():
+                router.fault_injection.kill_replica(0)
+                t0 = time.perf_counter()
+                box["gen"] = router.hot_swap(rb2)
+                box["swap_s"] = time.perf_counter() - t0
+
+            out, failed, wall = drive_clients(lambda i: router.submit(packed[i]), REQUESTS, mid)
+            deadline = time.perf_counter() + 30
+            while time.perf_counter() < deadline and not all(
+                    r["state"] == "healthy" for r in router.stats()["replicas"]):
+                time.sleep(0.02)
+            stats = router.stats()
+        finally:
+            router.close()
+    launches = ops_.launch_counts()["rule_match"]
+    batches = sum(r["gateway"]["batches"] for r in stats["replicas"])
+    responses = sum(r is not None for r in out)
+    states = [r["state"] for r in stats["replicas"]]
+    gens_end = [r["generation"] for r in stats["replicas"]]
+    log(f"[router] {responses} responses ({failed}) in {wall:.3f} s = {responses / wall:.0f} qps; kills fired "
+        f"{router.fault_injection.kills_fired}, failovers {stats['failovers']}, coordinated swap to generation "
+        f"{box['gen']} in {box['swap_s']:.3f} s; replica states {states}, generations {gens_end}; K2 launched "
+        f"{launches} times ({warms.calls} warm ladders + {batches} batches); router p50 "
+        f"{stats['latency']['p50_ms']:.3f} ms, p99 {stats['latency']['p99_ms']:.3f} ms [{card}]")
+    if responses + sum(failed.values()) != REQUESTS:
+        raise AssertionError(f"[router] dropped: {responses} responses, {failed}")
+    if states != ["healthy"] * 3 or gens_end != [1, 1, 1] or router.fault_injection.kills_fired != 1:
+        raise AssertionError(f"[router] replicas {states} at generations {gens_end}")
+    if launches != warms.calls * len(LADDER) + batches:
+        raise AssertionError("[router] K2 launches differ from the warm ladders plus the batches")
+    gens = check_responses("router", out, {0: want, 1: want2})
+    if gens != [0, 1]:
+        raise AssertionError(f"[router] generations {gens}")
+    log(f"[router] zero drops ({failed['crashed']} crashed in the killed batch); every replica healthy at "
+        "generation 1; every response its generation's recommend")
+    return dict(launches=launches, qps=responses / wall)
+
+
+def serve_cli_phase(store, root, dev, card):
+    """``[serve-cli]``: ``python -m repro_torch.launch.serve`` as a
+    subprocess at this shape on copies of the store, once plain and once
+    with 3 replicas, a replica kill, a delta refresh of 5% appended rows,
+    SLOs, a trace and a metrics file; the summaries' invariants hold."""
+    base = ["--transactions", str(store.num_transactions), "--items", str(store.num_items),
+            "--avg-len", "10", "--seed", "0", "--device", dev.type,
+            "--min-support", "0.002", "--max-k", "4", "--min-confidence", "0.4",
+            "--shard-rows", str(STORE_SHARD_ROWS), "--stream-chunk-rows", str(STREAM_CHUNK_ROWS),
+            "--requests", str(REQUESTS), "--concurrency", str(CLIENTS)]
+    trace, metrics = os.path.join(root, "trace.json"), os.path.join(root, "metrics.json")
+    runs = {
+        "plain": [],
+        "chaos": ["--replicas", "3", "--kill-replica-mid-load", "--refresh", "delta", "--append-mid-load",
+                  str(APPEND_FRACTION), "--slo", "--trace-out", trace, "--trace-sample", "0.05",
+                  "--metrics-out", metrics],
+    }
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    summaries = {}
+    for name, flags in runs.items():
+        path = os.path.join(root, f"cli-{name}")
+        shutil.copytree(store.path, path)
+        out = os.path.join(root, f"cli-{name}.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *base, "--store", path,
+                               *flags, "--json", out], capture_output=True, text=True, env=env, timeout=600)
+        wall = time.perf_counter() - t0
+        tail = [ln for ln in proc.stdout.splitlines() if ln.startswith("[serve]")][-4:]
+        for ln in tail:
+            log(f"[serve-cli] {name}: {ln}")
+        if proc.returncode != 0:
+            log(proc.stdout[-4000:])
+            log(proc.stderr[-4000:])
+            raise AssertionError(f"[serve-cli] {name} exited {proc.returncode}")
+        s = json.load(open(out))
+        summaries[name] = s
+        log(f"[serve-cli] {name} in {wall:.1f} s: {s['responses']} responses, qps {s['qps']:.0f}, registry p50 "
+            f"{s['p50_ms']:.3f} ms, p99 {s['p99_ms']:.3f} ms, occupancy {s['batch_occupancy']:.3f}, "
+            f"generations {s['generations']} [{card}]")
+    p, c = summaries["plain"], summaries["chaos"]
+    if p["responses"] + p["rejected"] != REQUESTS or p["generations"] != [0] or p["responses"] == 0:
+        raise AssertionError(f"[serve-cli] plain summary {p}")
+    terminal = c["responses"] + c["rejected"] + c["crashed_requests"] + c["deadline_expired_requests"]
+    if (terminal != REQUESTS or c["kills_fired"] != 1 or c["worker_restarts"] < 1 or c["availability"] < 0.99
+            or c["replica_states"] != ["healthy"] * 3 or len(set(c["replica_generations"])) != 1
+            or c["generations"] != [0, 1] or c["refresh"]["mode"] != "delta"
+            or c["refresh"]["appended_rows"] != int(APPEND_FRACTION * store.num_transactions)):
+        raise AssertionError(f"[serve-cli] chaos summary {({k: v for k, v in c.items() if k != 'alerts'})}")
+    names = {e["name"] for e in json.load(open(trace))["traceEvents"]}
+    need = {"router.request", "router.attempt", "gateway.request", "queue.wait", "batch.assemble",
+            "device.dispatch", "swap.prepare", "swap.commit"}
+    if not need <= names:
+        raise AssertionError(f"[serve-cli] trace lacks {need - names}")
+    reg = json.load(open(metrics))
+    if sorted(reg) != ["replicas", "router"] or len(reg["replicas"]) != 3:
+        raise AssertionError("[serve-cli] metrics file")
+    log(f"[serve-cli] chaos: refresh {c['refresh']['mode']} {c['refresh']['latency_s']:.3f} s, "
+        f"{c['refresh']['delta_rows']} rows; kills {c['kills_fired']}, restarts {c['worker_restarts']}, "
+        f"availability {c['availability']:.4f}, failovers {c['failovers']}, alerts fired {c['alerts_fired']} "
+        f"cleared {c['alerts_cleared']}; replica states {c['replica_states']} at {c['replica_generations']}; "
+        f"the trace holds the request chain and the swap spans [{card}]")
+    log("[serve-cli] both summaries hold the verify recipe's invariants")
+    return dict(plain_qps=p["qps"], plain_p50=p["p50_ms"], plain_p99=p["p99_ms"], chaos_qps=c["qps"],
+                chaos_p50=c["p50_ms"], chaos_p99=c["p99_ms"], refresh_s=c["refresh"]["latency_s"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke needs a CUDA card",
@@ -1215,6 +1747,18 @@ def main() -> int:
         stream_son_phase(streaming, ops, store, dense_cfg, dense_res, phase1, union_levels, dev, card)
         stream_resume_phase(streaming, ops, store, cfg, res, dev, card)
 
+        # ---- the serving tier over the store: gateway, hot swap, delta
+        # mining, refresh, router and the serve CLI; each phase sets the
+        # launch counts to 0 just before its run and reads them just after
+        packed = np.array(next(store.iter_chunks(REQUESTS))[0][:REQUESTS])
+        serving = dict(gateway=gateway_phase(ops, rb, packed, rec, dev, card))
+        rb2, want2, serving["swap"] = gateway_swap_phase(streaming, ops, store, rb, packed, rec, dev, card)
+        delta_path, delta_res, serving["delta"] = delta_phase(streaming, son_mod, ops, store, cfg, root, dev, card)
+        serving["refresh"] = refresh_phase(streaming, son_mod, ops, delta_path, delta_res, cfg, packed, dev, card)
+        serving["router"] = router_phase(ops, rb, rb2, packed, rec, want2, dev, card)
+        serving["cli"] = serve_cli_phase(store, root, dev, card)
+        log(f"[serving] {json.dumps(serving)}")
+
     # ---- K2 at the main path's batch shape
     k2 = k2_main_shape(ops, rb, pack_bits(db[:1024]), dev, card)
 
@@ -1226,14 +1770,19 @@ def main() -> int:
              plain_ms=k1["and_cmp"]["plain_ms"], bound_ms=k1["and_cmp"]["bound_ms"],
              bound_by=k1["and_cmp"]["bound_by"], library_ms=None,
              stream_launches=k1_stream["launches"], stream_ms_per_launch=k1_stream["ms_per_launch"],
-             stream_event_ms_per_launch=k1_stream["event_ms_per_launch"]),
+             stream_event_ms_per_launch=k1_stream["event_ms_per_launch"],
+             swap_mine_launches=serving["swap"]["k1"], build_cache_launches=serving["delta"]["build_launches"],
+             delta_launches=serving["delta"]["launches"], refresh_launches=serving["refresh"]["k1"]),
         dict(name="rule_match", route="cuda", source="src/repro_torch/kernels/csrc/rule_match.cu",
              replaces="src/repro/kernels/rule_match.py:86", launches=k2_launches,
              max_abs_err=k2["max_abs_err"], ms=k2["ms"], plain_ms=k2["plain_ms"],
              bound_ms=k2["bound_ms"], bound_by=k2["bound_by"], library_ms=None,
              all_match_ms=k2["all_match_ms"],
              stream_launches=k2_stream["launches"], stream_ms_per_launch=k2_stream["ms_per_launch"],
-             stream_event_ms_per_launch=k2_stream["event_ms_per_launch"]),
+             stream_event_ms_per_launch=k2_stream["event_ms_per_launch"],
+             gateway_launches=serving["gateway"]["launches"], gateway_bucket_ms=serving["gateway"]["bucket_ms"],
+             swap_launches=serving["swap"]["k2"], refresh_launches=serving["refresh"]["k2"],
+             router_launches=serving["router"]["launches"]),
         dict(name="support_count", route="cuda", source="src/repro_torch/kernels/csrc/support_count.cu",
              replaces="src/repro/kernels/support_count.py:69", launches=k3_launches,
              max_abs_err=k3["bf16"]["max_abs_err"], ms=k3["bf16"]["ms"], plain_ms=k3["bf16"]["plain_ms"],

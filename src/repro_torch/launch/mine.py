@@ -18,6 +18,13 @@
   # streamed SON with the retrying phase-1 executor:
   PYTHONPATH=src python -m repro_torch.launch.mine ... --store DIR --algo son \
       --max-partition-retries 1
+  # incremental: seed the count cache once, then each later run folds ONLY
+  # the rows appended since it (dict-identical to a full re-mine):
+  PYTHONPATH=src python -m repro_torch.launch.mine ... --store DIR --count-cache
+  PYTHONPATH=src python -m repro_torch.launch.mine ... --store DIR --delta
+  # live per-level progress, job counters and a perfetto-loadable trace:
+  PYTHONPATH=src python -m repro_torch.launch.mine ... --store DIR \
+      --progress --trace-out mine-trace.json --metrics-out mine-metrics.json
 
 Level-wise, SON and the paper's all-subsets map, over dense or packed
 transactions, in memory or (``--store``) streamed from an on-disk store
@@ -29,8 +36,10 @@ JAX package's mine CLI prints (``seconds``, ``total_frequent``,
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
+import sys
 import time
 
 
@@ -75,12 +84,38 @@ def main(argv=None):
     ap.add_argument("--max-partition-retries", type=int, default=None, metavar="N",
                     help="SON streamed phase 1: run shard mappers through the retrying "
                          "executor with N re-executions per partition")
+    ap.add_argument("--count-cache", action="store_true",
+                    help="SON streamed mine that also persists the pre-prune phase-2 "
+                         "union counts into the store manifest as the incremental "
+                         "count cache (the seed for --delta); needs --store")
+    ap.add_argument("--delta", action="store_true",
+                    help="incremental mine: fold rows appended since the count cache "
+                         "generation into it and re-verify only novel candidates "
+                         "(core.incremental.mine_delta; full-scan fallback on a "
+                         "cold/invalid cache or an oversized delta, the report says "
+                         "which); needs --store")
+    ap.add_argument("--progress", action="store_true",
+                    help="streamed mining: live per-level progress lines with rows/s "
+                         "throughput and ETA (stderr)")
+    ap.add_argument("--trace-out", default="", metavar="PATH",
+                    help="streamed mining: write a Chrome trace-event JSON of the "
+                         "mining phase spans (load in ui.perfetto.dev)")
+    ap.add_argument("--metrics-out", default="", metavar="PATH",
+                    help="streamed mining: write the Hadoop-style job counters as JSON")
     args = ap.parse_args(argv)
 
     if (args.checkpoint_every or args.resume) and not args.store:
         ap.error("--checkpoint-every/--resume need the streamed miner: add --store DIR")
-    if args.max_partition_retries is not None and not (args.store and args.algo == "son"):
-        ap.error("--max-partition-retries needs --store DIR and --algo son")
+    if (args.count_cache or args.delta) and not args.store:
+        ap.error("--count-cache/--delta need the on-disk store: add --store DIR")
+    if args.max_partition_retries is not None and not (
+        args.store and (args.algo == "son" or args.count_cache or args.delta)
+    ):
+        ap.error("--max-partition-retries needs --store DIR and --algo son "
+                 "(or --count-cache/--delta, which run SON phase 1 inside)")
+    if (args.progress or args.trace_out or args.metrics_out) and not args.store:
+        ap.error("--progress/--trace-out/--metrics-out instrument the streamed "
+                 "driver: add --store DIR")
 
     from repro_torch.core.apriori import AprioriConfig, mine
     from repro_torch.core.rules import extract_rules
@@ -109,18 +144,37 @@ def main(argv=None):
     cfg = AprioriConfig(min_support=args.min_support, max_k=args.max_k, count_impl=args.impl,
                         representation=args.representation, use_naive_paper_map=(args.algo == "naive_paper"))
 
+    obs = tracer = None
+    if args.progress or args.trace_out or args.metrics_out:
+        from repro_torch.obs import MetricsRegistry, MiningObs, MiningProgress, Tracer
+
+        tracer = Tracer(sample_rate=1.0) if args.trace_out else None
+        progress = MiningProgress(total_rows=store.num_transactions) if args.progress else None
+        obs = MiningObs(registry=MetricsRegistry(), tracer=tracer, progress=progress)
+
     t0 = time.time()
     if store is not None:
+        from repro_torch.core import incremental as inc
         from repro_torch.core.streaming import mine_son_streamed, mine_streamed
 
-        if args.algo == "son":
-            fault = None
-            if args.max_partition_retries is not None:
-                from repro_torch.distributed.fault_tolerance import FaultConfig
+        fault = None
+        if args.max_partition_retries is not None:
+            from repro_torch.distributed.fault_tolerance import FaultConfig
 
-                fault = FaultConfig(max_retries=args.max_partition_retries)
+            fault = FaultConfig(max_retries=args.max_partition_retries)
+        if args.delta:
+            res, rep = inc.mine_delta(store, cfg, device, chunk_rows=args.stream_chunk_rows,
+                                      fault=fault, checkpoint=True, resume=args.resume, obs=obs)
+            print(f"[mine] delta report: {json.dumps(dataclasses.asdict(rep))}")
+        elif args.count_cache:
+            res, cache = inc.build_count_cache(store, cfg, device, chunk_rows=args.stream_chunk_rows,
+                                               fault=fault, obs=obs)
+            print(f"[mine] count cache seq={cache.seq} covering n={cache.n} "
+                  f"({cache.candidate_total()} cached candidates over levels "
+                  f"{sorted(cache.levels)}) -> {store.path}")
+        elif args.algo == "son":
             res = mine_son_streamed(store, cfg, device=device, chunk_rows=args.stream_chunk_rows,
-                                    fault=fault)
+                                    fault=fault, obs=obs)
             if res.fault_report is not None:
                 print(f"[mine] SON fault report: {json.dumps(res.fault_report.to_json())}")
         else:
@@ -129,7 +183,8 @@ def main(argv=None):
                 print(f"[mine] resuming from {store.checkpoint_path} (if a committed checkpoint exists)")
             res = mine_streamed(store, cfg, device=device, chunk_rows=args.stream_chunk_rows,
                                 checkpoint=True if use_ckpt else None,
-                                checkpoint_every_chunks=args.checkpoint_every, resume=args.resume)
+                                checkpoint_every_chunks=args.checkpoint_every, resume=args.resume,
+                                obs=obs)
     elif args.algo == "son":
         res = mine_son(db, cfg, device=device, num_partitions=args.partitions)
     else:
@@ -159,6 +214,17 @@ def main(argv=None):
         rb.save(args.rulebook)
         print(f"[rulebook] {rb.num_rules} rules ({rb.num_rows} padded rows, "
               f"score={rb.score_kind}) -> {args.rulebook}")
+
+    if obs is not None:
+        obs.finish()
+        if args.trace_out:
+            tracer.save_chrome(args.trace_out)
+            print(f"[obs] wrote {len(tracer.spans())} spans -> {args.trace_out} "
+                  "(load in ui.perfetto.dev)", file=sys.stderr)
+        if args.metrics_out:
+            with open(args.metrics_out, "w") as f:
+                json.dump({"seconds": dt, "counters": obs.counters()}, f, indent=2)
+            print(f"[obs] wrote job counters -> {args.metrics_out}", file=sys.stderr)
 
     print(json.dumps({"seconds": dt, "total_frequent": res.total_frequent,
                       "levels": {k: int(v[0].shape[0]) for k, v in res.levels.items()}}))

@@ -1,0 +1,279 @@
+"""Continuous rulebook refresh: store append → delta mine → hot-swap.
+
+The serving tier has a freshness *gauge* (``generation_age_seconds`` +
+its SLO) but nothing in it closes the loop —
+rulebooks only changed when an operator re-mined. :class:`RefreshController`
+is that loop (DESIGN.md §15):
+
+    appended rows land in the store (``StoreWriter.open_for_append``)
+        → the controller's watcher notices the row watermark advance
+        → delta mine against the persisted count cache
+          (``core.incremental.mine_delta``; full SON re-mine as fallback,
+          checkpoint snapshots so a crash mid-delta resumes)
+        → ``compile_rulebook``
+        → coordinated hot-swap on the target (Gateway or Router — both
+          re-stamp ``generation_age_seconds`` at commit)
+
+The controller is deliberately *level-triggered*: each cycle reads the
+manifest row count and compares it to the watermark of the last swap, so a
+missed poll, a crashed refresh, or many appends coalescing into one refresh
+all converge to the same fixed point — serving generation covers store
+contents. ``handle_alert`` accepts SLO engine events (signal ``freshness``)
+and kicks an immediate cycle, turning a burning freshness budget into a
+refresh instead of a page.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+
+from repro_torch.core import apriori as ap
+from repro_torch.core import incremental as inc
+from repro_torch.core import streaming as st
+from repro_torch.data.store import open_store
+from repro_torch.device import resolve_device
+from repro_torch.serving.metrics import _RegistryMetrics
+from repro_torch.serving.rulebook import compile_rulebook
+
+
+class RefreshMetrics(_RegistryMetrics):
+    """Registry-backed refresh counters + the ``refresh_latency_seconds``
+    histogram (created by the base bundle), observable through the same
+    snapshot/SLO machinery as the gateway/router bundles (§13)."""
+
+    _COUNTER_FIELDS = (
+        "triggered",          # refresh cycles started
+        "delta",              # served by the incremental path
+        "full",               # full re-mine (mode or fallback)
+        "noop",               # no new rows since the cache generation
+        "failures",
+        "rows_folded",        # appended rows folded into the cache
+        "novel_reverified",   # candidates re-counted over the base store
+        "alert_kicks",        # cycles forced by a freshness SLO alert
+    )
+
+    def __init__(self, registry=None):
+        super().__init__(registry, prefix="refresh")
+
+    def record_cycle(self, mode: str, seconds: float, rows: int, novel: int) -> None:
+        with self._lock:
+            self._inc("triggered")
+            self._inc(mode)      # "delta" | "full" | "noop"
+            self._counters["rows_folded"].inc(rows)
+            self._counters["novel_reverified"].inc(novel)
+            self.latency.record(seconds)
+
+    def record_failure(self) -> None:
+        with self._lock:
+            self._inc("triggered")
+            self._inc("failures")
+
+
+class RefreshController:
+    """Background driver keeping a serving target's rulebook current with an
+    append-only :class:`TransactionStore`.
+
+    ``target`` is anything with ``hot_swap(rulebook) -> generation`` and a
+    ``metrics.registry`` (Gateway or Router). ``mode="delta"`` goes through
+    :func:`core.incremental.mine_delta` (which itself falls back to a full
+    SON re-mine on a cold/invalid cache or an oversized delta);
+    ``mode="full"`` always re-mines with the level-wise streamed driver.
+    Both mine on ``device`` from the controller's own thread, beside the
+    target's dispatch workers; the swap places the new rulebook there too
+    (:meth:`Gateway.prepare_swap`).
+    ``min_append_rows`` is the watermark hysteresis: a refresh fires once at
+    least that many rows sit above the last swapped watermark.
+    """
+
+    def __init__(
+        self,
+        store_path: str,
+        target,
+        cfg: ap.AprioriConfig = ap.AprioriConfig(),
+        *,
+        device="cuda",
+        chunk_rows: int = 8192,
+        prefetch: int = 2,
+        min_confidence: float = 0.5,
+        score: str = "confidence",
+        max_rules: int | None = None,
+        mode: str = "delta",
+        min_append_rows: int = 1,
+        poll_interval_s: float = 0.25,
+        max_delta_fraction: float = inc.DEFAULT_MAX_DELTA_FRACTION,
+        max_drift_fraction: float = inc.DEFAULT_MAX_DRIFT_FRACTION,
+        fault=None,
+        checkpoint=True,
+        registry=None,
+        on_refresh=None,
+    ):
+        if mode not in ("delta", "full"):
+            raise ValueError(f"mode must be delta|full, got {mode!r}")
+        self.store_path = store_path
+        self.target = target
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.chunk_rows = chunk_rows
+        self.prefetch = prefetch
+        self.min_confidence = min_confidence
+        self.score = score
+        self.max_rules = max_rules
+        self.mode = mode
+        self.min_append_rows = max(1, int(min_append_rows))
+        self.poll_interval_s = poll_interval_s
+        self.max_delta_fraction = max_delta_fraction
+        self.max_drift_fraction = max_drift_fraction
+        self.fault = fault
+        self.checkpoint = checkpoint
+        self.on_refresh = on_refresh
+        self.metrics = RefreshMetrics(
+            registry if registry is not None
+            else getattr(getattr(target, "metrics", None), "registry", None)
+        )
+        self.history: list[dict] = []
+        self.last_error: BaseException | None = None
+        # rows the SERVED rulebook covers; a refresh advances it. In delta
+        # mode the count cache records exactly that (the initial rulebook
+        # came out of build_count_cache), so rows appended BEFORE the
+        # controller starts still count as pending; without a cache the
+        # store's current size is the best available baseline.
+        cache = inc.load_count_cache(open_store(store_path))
+        self.watermark = (
+            cache.n if (mode == "delta" and cache is not None)
+            else open_store(store_path).num_transactions
+        )
+        self._lock = threading.Lock()        # serializes refresh cycles
+        self._wake = threading.Event()
+        self._stop = threading.Event()
+        self._alert_kick = False
+        self._thread: threading.Thread | None = None
+
+    # ------------------------------------------------------------ lifecycle --
+    def start(self) -> "RefreshController":
+        if self._thread is not None:
+            raise RuntimeError("RefreshController already started")
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._run, name="refresh-controller", daemon=True
+        )
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._wake.set()
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def __enter__(self) -> "RefreshController":
+        return self.start()
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.stop()
+
+    # -------------------------------------------------------------- watcher --
+    def _store_rows(self) -> int:
+        try:
+            return open_store(self.store_path).num_transactions
+        except (FileNotFoundError, ValueError):
+            return self.watermark   # store mid-rewrite: treat as unchanged
+
+    def pending_rows(self) -> int:
+        return max(0, self._store_rows() - self.watermark)
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            kicked, self._alert_kick = self._alert_kick, False
+            threshold = 1 if kicked else self.min_append_rows
+            if self.pending_rows() >= threshold:
+                try:
+                    self.refresh_now()
+                except Exception:
+                    pass   # recorded in metrics/last_error; keep watching
+            self._wake.wait(self.poll_interval_s)
+            self._wake.clear()
+
+    def handle_alert(self, event) -> None:
+        """SLO engine hook: a firing freshness alert forces a cycle even
+        below the watermark hysteresis (the freshness loop, closed)."""
+        signal = getattr(event, "signal", None) or (
+            event.get("signal") if isinstance(event, dict) else None
+        )
+        severity = getattr(event, "severity", None) or (
+            event.get("severity") if isinstance(event, dict) else None
+        )
+        if signal == "freshness" and severity not in (None, "ok"):
+            self.metrics._inc("alert_kicks")
+            self._alert_kick = True
+            self._wake.set()
+
+    # -------------------------------------------------------------- refresh --
+    def refresh_now(self) -> int:
+        """Run one synchronous refresh cycle; returns the new serving
+        generation. Raises (and counts a failure) if mining/swap fail —
+        the previous generation keeps serving either way."""
+        with self._lock:
+            t0 = time.perf_counter()
+            try:
+                store = open_store(self.store_path)
+                if self.mode == "full":
+                    res = st.mine_streamed(
+                        store, self.cfg, device=self.device,
+                        chunk_rows=self.chunk_rows, prefetch=self.prefetch,
+                    )
+                    report = inc.DeltaReport(
+                        mode="full", reason="mode_full",
+                        base_rows=0, delta_rows=store.num_transactions,
+                        base_shards=0, delta_shards=store.num_partitions,
+                    )
+                else:
+                    res, report = inc.mine_delta(
+                        store, self.cfg, self.device,
+                        chunk_rows=self.chunk_rows, prefetch=self.prefetch,
+                        fault=self.fault, checkpoint=self.checkpoint,
+                        resume=True,
+                        max_delta_fraction=self.max_delta_fraction,
+                        max_drift_fraction=self.max_drift_fraction,
+                    )
+                rulebook = compile_rulebook(
+                    res,
+                    min_confidence=self.min_confidence,
+                    score=self.score,
+                    max_rules=self.max_rules,
+                    num_items=store.num_items,
+                )
+                generation = self.target.hot_swap(rulebook)
+                self.watermark = store.num_transactions
+            except BaseException as e:
+                self.last_error = e
+                self.metrics.record_failure()
+                raise
+            seconds = time.perf_counter() - t0
+            self.metrics.record_cycle(
+                report.mode, seconds,
+                rows=report.delta_rows, novel=report.novel_candidates,
+            )
+            record = {
+                "generation": generation,
+                "mode": report.mode,
+                "reason": report.reason,
+                "seconds": seconds,
+                "delta_rows": report.delta_rows,
+                "novel_candidates": report.novel_candidates,
+                "watermark": self.watermark,
+                "rules": int(rulebook.num_rules),
+            }
+            self.history.append(record)
+            if self.on_refresh is not None:
+                self.on_refresh(record)
+            return generation
+
+    def stats(self) -> dict:
+        return {
+            "watermark": self.watermark,
+            "pending_rows": self.pending_rows(),
+            "cycles": len(self.history),
+            "last": self.history[-1] if self.history else None,
+        }

@@ -1,12 +1,16 @@
 """PyTorch port on the card: each CUDA kernel against its plain version at
 the sweep shapes, the mine -> compile -> recommend chain through the
-kernels, and the dense and SON mines through K3.  Marked ``gpu``; every test skips without a card (decided in the
+kernels, the dense and SON mines through K3, the streamed mines, and the
+serving tier (the gateway at every bucket, swaps placed from another thread
+under load, the router with a kill and a swap) and a dense delta mine.
+Marked ``gpu``; every test skips without a card (decided in the
 fixture, so every worker collects the same tests).  Run on the card with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
 
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -523,3 +527,154 @@ def test_streamed_mines_through_kernels(cuda, tmp_path):
         resumed = streaming.mine_streamed(store, cfg, chunk_rows=1_000, checkpoint=True,
                                           checkpoint_every_chunks=2, resume=True)
         assert resumed.as_dict() == want
+
+
+# --------------------------------------------------------------- serving ---
+def _serving_rulebooks(dev):
+    from repro_torch.core.apriori import AprioriConfig, mine
+    from repro_torch.data.synthetic import QuestConfig, gen_transactions
+    from repro_torch.serving.rulebook import compile_rulebook
+
+    db = gen_transactions(QuestConfig(num_transactions=4000, num_items=200, avg_len=10, seed=7))
+    cfg = AprioriConfig(min_support=0.01, max_k=4, representation="packed")
+    rb0 = compile_rulebook(mine(db, cfg, device=dev), min_confidence=0.2, num_items=200)
+    cfg1 = AprioriConfig(min_support=0.02, max_k=4, representation="packed")
+    rb1 = compile_rulebook(mine(db, cfg1, device=dev), min_confidence=0.3, num_items=200)
+    return db, rb0, rb1
+
+
+def _same_response(resp, want, i):
+    assert np.array_equal(resp.items, want.items[i])
+    assert np.array_equal(resp.scores.view(np.uint32), want.scores[i].view(np.uint32))
+
+
+@pytest.mark.parametrize("max_batch", [1, 8, 64])
+def test_gateway_on_card_bit_equal_to_recommend_at_every_bucket(cuda, max_batch):
+    """Gateway responses on the card are the port's recommend of the same
+    basket bit for bit, whatever bucket answered (K2 sums in ascending rule
+    order independent of the batch); K2 launches = warm ladder + batches."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.serving import Gateway
+    from repro_torch.serving.recommend import recommend
+
+    db, rb0, _ = _serving_rulebooks(cuda)
+    baskets = [np.flatnonzero(r).tolist() for r in db[:512]]
+    want = recommend(rb0, db[:512], top_k=10, batch_size=1024)
+    ops.reset_launch_counts()
+    with Gateway(rb0, warmup="ladder", max_batch=max_batch, max_wait_ms=1.0, cache_capacity=0) as gw:
+        warm = ops.launch_counts()["rule_match"]
+        assert warm == max_batch.bit_length()
+        assert gw._generation.rulebook.device.type == "cuda"
+        with ThreadPoolExecutor(max_workers=16) as pool:
+            resps = list(pool.map(lambda i: gw.query(baskets[i], top_k=10, timeout=60), range(512)))
+        buckets = {r.bucket for r in resps}
+        for i, r in enumerate(resps):
+            _same_response(r, want, i)
+        assert ops.launch_counts()["rule_match"] == warm + gw.stats()["batches"]
+    assert max(buckets) <= max_batch
+
+
+def test_hot_swap_race_on_card(cuda):
+    """Swaps prepared (placed + warmed) from another thread while 8 client
+    threads keep the dispatch worker busy: every response equals its own
+    generation's recommend bit for bit — no response reads a half-copied
+    rulebook."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.serving import Gateway
+    from repro_torch.serving.recommend import recommend
+
+    db, rb0, rb1 = _serving_rulebooks(cuda)
+    baskets = [np.flatnonzero(r).tolist() for r in db[:256]]
+    want = {0: recommend(rb0, db[:256], top_k=10), 1: recommend(rb1, db[:256], top_k=10)}
+    books = [rb0, rb1]
+    stop = threading.Event()
+    with Gateway(rb0, warmup="ladder", max_batch=32, max_wait_ms=0.5, cache_capacity=0) as gw:
+        gens = {0: 0}
+
+        def swapper():
+            for g in range(1, 9):
+                prepared = gw.prepare_swap(books[g % 2])
+                gens[gw.commit_swap(prepared)] = g % 2
+            stop.set()
+
+        def client(c):
+            out = []
+            i = c
+            while not stop.is_set() or len(out) < 64:
+                r = gw.query(baskets[i % 256], top_k=10, timeout=60)
+                out.append((i % 256, r))
+                i += 8
+            return out
+
+        t = threading.Thread(target=swapper)
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            futs = [pool.submit(client, c) for c in range(8)]
+            t.start()
+            t.join(120)
+            results = [x for f in futs for x in f.result(120)]
+    assert not t.is_alive() and gw.generation == 8
+    seen = set()
+    for i, r in results:
+        seen.add(r.generation)
+        _same_response(r, want[gens[r.generation]], i)
+    assert len(seen) > 1
+
+
+def test_router_on_card_kill_and_swap(cuda):
+    """Three replicas on the one card, one worker killed, a coordinated
+    swap: every answered request is its generation's recommend bit for bit."""
+    from repro_torch.distributed import FaultConfig
+    from repro_torch.serving import Router, WorkerCrashed
+    from repro_torch.serving.recommend import recommend
+
+    db, rb0, rb1 = _serving_rulebooks(cuda)
+    want = {0: recommend(rb0, db[:128], top_k=10), 1: recommend(rb1, db[:128], top_k=10)}
+    with Router(rb0, 3, warmup="ladder", max_batch=16, attempt_timeout_s=5.0,
+                fault=FaultConfig(max_retries=3, backoff_s=0.01)) as r:
+        r.fault_injection.kill_replica(1)
+        futs = [(i, r.submit(np.flatnonzero(db[i]).tolist())) for i in range(64)]
+        assert r.hot_swap(rb1) == 1
+        futs += [(i, r.submit(np.flatnonzero(db[i]).tolist())) for i in range(64, 128)]
+        for i, f in futs:
+            try:
+                resp = f.result(60)
+            except WorkerCrashed:
+                continue
+            _same_response(resp, want[resp.generation], i)
+        # a replica suspect at the swap is re-synced by the monitor afterwards
+        deadline = time.perf_counter() + 30
+        while time.perf_counter() < deadline and any(rep.gateway.generation != 1 for rep in r._replicas):
+            time.sleep(0.01)
+        assert [rep.gateway.generation for rep in r._replicas] == [1, 1, 1]
+        assert all(rep.gateway._generation.rulebook.device.type == "cuda" for rep in r._replicas)
+
+
+def test_dense_mine_delta_through_k3(cuda, tmp_path):
+    """A dense delta mine on the card (K3 in phase 1 and in both union
+    counts) is dict-identical to a full streamed re-mine and to the delta
+    mine on the CPU; K3 launched, K1 not."""
+    import shutil
+
+    from repro_torch.core import incremental as inc
+    from repro_torch.core import streaming
+    from repro_torch.core.apriori import AprioriConfig
+    from repro_torch.data.store import append_chunks, ingest_quest, open_store
+    from repro_torch.data.synthetic import QuestConfig, gen_transactions
+
+    cfg = AprioriConfig(min_support=0.02, max_k=3)
+    p = str(tmp_path / "db")
+    ingest_quest(QuestConfig(num_transactions=6000, num_items=120, avg_len=8, seed=5), p, shard_rows=1_500)
+    inc.build_count_cache(open_store(p), cfg, chunk_rows=1_000)
+    append_chunks([gen_transactions(QuestConfig(num_transactions=700, num_items=120, avg_len=8, seed=6))], p)
+    shutil.copytree(p, str(tmp_path / "cpu"))
+    ops.reset_launch_counts()
+    res, rep = inc.mine_delta(open_store(p), cfg, chunk_rows=1_000)
+    counts = ops.launch_counts()
+    assert rep.mode == "delta" and counts["support_count"] > 0 and counts["support_count_packed"] == 0
+    cpu, cpu_rep = inc.mine_delta(open_store(str(tmp_path / "cpu")), cfg, "cpu", chunk_rows=1_000)
+    full = streaming.mine_streamed(open_store(p), cfg, chunk_rows=1_000)
+    assert res.as_dict() == cpu.as_dict() == full.as_dict()
+    assert rep.novel_candidates == cpu_rep.novel_candidates

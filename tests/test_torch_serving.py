@@ -18,11 +18,11 @@ from repro.data.synthetic import QuestConfig, gen_transactions  # noqa: E402
 from repro.serving import rulebook as jrb  # noqa: E402
 from repro_torch.core import apriori as tapr  # noqa: E402
 from repro_torch.core import rules as trules  # noqa: E402
-from repro_torch.serving import recommend as trec  # noqa: E402
 from repro_torch.serving import rulebook as trb  # noqa: E402
 
-# the package re-exports a function named ``recommend``, which shadows the module
+# each package re-exports a function named ``recommend``, which shadows the module
 jrec = importlib.import_module("repro.serving.recommend")
+trec = importlib.import_module("repro_torch.serving.recommend")
 
 RTOL, ATOL = 1e-5, 1e-6
 COLUMNS = ("ante_packed", "cons_packed", "ante_len", "scores")

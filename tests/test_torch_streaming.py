@@ -342,3 +342,79 @@ def test_cli_store_flag_rules():
                  ["--store", "x", "--max-partition-retries", "1"]):
         with pytest.raises(SystemExit):
             tcli.main(argv)
+
+
+def _delta_report(text):
+    line = [ln for ln in text.splitlines() if ln.startswith("[mine] delta report: ")][-1]
+    return json.loads(line.split(": ", 1)[1])
+
+
+def test_cli_count_cache_then_delta_matches_jax(tmp_path, capsys, monkeypatch):
+    """``--count-cache`` seeds the cache, rows are appended, ``--delta``
+    folds them in: each step prints the JAX CLI's JSON line, and the delta
+    report equals the JAX CLI's."""
+    from repro.data.store import append_chunks as jappend
+    from repro.launch import mine as jcli
+    from repro_torch.data.store import append_chunks as tappend
+    from repro_torch.data.synthetic import QuestConfig, gen_transactions
+    from repro_torch.launch import mine as tcli
+
+    extra = gen_transactions(QuestConfig(num_transactions=300, num_items=64, seed=9))
+    base = [*CLI_ARGS, "--representation", "packed"]
+    outs = {}
+    for who, store, append in (("jax", tmp_path / "j", jappend), ("port", tmp_path / "t", tappend)):
+        lines = []
+        for flag in ("--count-cache", "--delta"):
+            argv = [*base, "--store", str(store), flag]
+            if who == "jax":
+                monkeypatch.setattr(sys, "argv", ["repro.launch.mine", *argv])
+                jcli.main()
+            else:
+                tcli.main([*argv, "--device", "cpu"])
+            out = capsys.readouterr().out
+            lines.append(_last_json(out))
+            if flag == "--count-cache":
+                assert "[mine] count cache seq=1" in out
+                append([extra], str(store))
+            else:
+                lines.append(_delta_report(out))
+        outs[who] = lines
+    assert outs["port"] == outs["jax"]
+    assert outs["port"][2]["mode"] == "delta" and outs["port"][2]["delta_rows"] == 300
+
+
+def test_cli_observability_flags(tmp_path, capsys, monkeypatch):
+    """``--progress --trace-out --metrics-out``: live progress on stderr, a
+    Chrome trace of the mining phases, the job counters the JAX CLI
+    writes, and the JSON line unchanged."""
+    from repro.launch import mine as jcli
+    from repro_torch.launch import mine as tcli
+
+    obs = ["--progress", "--trace-out", str(tmp_path / "trace.json"),
+           "--metrics-out", str(tmp_path / "metrics.json")]
+    jobs = ["--metrics-out", str(tmp_path / "jmetrics.json")]
+    monkeypatch.setattr(sys, "argv", ["repro.launch.mine", *CLI_ARGS, "--store", str(tmp_path / "j"), *jobs])
+    jcli.main()
+    want = _last_json(capsys.readouterr().out)
+    tcli.main([*CLI_ARGS, "--store", str(tmp_path / "t"), "--device", "cpu", *obs])
+    cap = capsys.readouterr()
+    assert _last_json(cap.out) == want
+    assert "[mine] L1" in cap.err and "rows/s" in cap.err
+    names = {e["name"] for e in json.load(open(tmp_path / "trace.json"))["traceEvents"]}
+    assert {"mine.level", "mine.candidate_gen", "mine.count_kernel", "mine.prefetch_stall"} <= names
+    got = json.load(open(tmp_path / "metrics.json"))
+    ref = json.load(open(tmp_path / "jmetrics.json"))
+    assert sorted(got["counters"]) == sorted(ref["counters"])
+    timed = [k for k in got["counters"] if k.startswith("mine_phase_seconds")]
+    for k in got["counters"]:
+        if k not in timed:
+            assert got["counters"][k] == ref["counters"][k], k
+
+
+def test_cli_delta_and_obs_flag_rules():
+    from repro_torch.launch import mine as tcli
+
+    for argv in (["--count-cache"], ["--delta"], ["--progress"], ["--trace-out", "t.json"],
+                 ["--metrics-out", "m.json"]):
+        with pytest.raises(SystemExit):
+            tcli.main(argv)
