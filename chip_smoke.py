@@ -38,7 +38,33 @@ exact launch counts:
 * ``[stream-son]``: ``mine_son_streamed`` over the 8 shards through the
   retrying phase-1 executor, K3 in both phases;
 * ``[stream-resume]``: a checkpointed packed ``mine_streamed`` stopped after
-  its third save, mid-level, then resumed.
+  its third save, mid-level, then resumed;
+
+then the serving tier over the store (``[gateway]``, ``[gateway-swap]``,
+``[delta]``, ``[refresh]``, ``[router]``, ``[serve-cli]``), and the paper's
+Map/Reduce across ranks: 4 or 6 ranks spawned on the one card over gloo,
+each with its own CUDA context, every rank's result checked:
+
+* ``[mesh]``: on a 2 x 2 data x model mesh, the packed ``mine`` through K1
+  (each rank 50,000 rows and half of each candidate bucket; K1 once a pass a
+  rank) and ``mine_son`` over 8 partitions dealt over the ranks, both
+  dict-identical to ``[main]``; each rank's K1 at its level-2 blocks
+  against its plain version and timed; the all-reduce a pass timed; the
+  setup (spawn, CUDA contexts, rendezvous) apart from the mine walls;
+* ``[mesh-dense]``: the bf16 mine through K3 on that mesh and in the paper's
+  1-D layout (4, 1), each dict-identical to ``[main-dense]``;
+* ``[mesh-stream]``: from ``[store]``'s store, ``mine_streamed`` packed and
+  dense at 8,191-row chunks (rounded up to 8,192), ``mine_son_streamed``,
+  ``mine_delta`` of ``[delta]``'s appended shard, each dict-identical to
+  its single-device phase, and a mine stopped on the mesh at its second
+  save resumed here without a mesh;
+* ``[mesh-recommend]``: the 43,518-rule rulebook over 3 uneven rule shards
+  of a (2, 3) mesh, ``recommend`` of the first 4,096 rows through K2 within
+  rtol 1e-5, atol 1e-6 of ``[main]``'s, items equal except at ties;
+* ``[mesh-cli]``: the mine CLI under ``torchrun`` on a 2 x 2 mesh prints the
+  single-device CLI's last line;
+* ``[mesh-nccl]``: ``[mesh]`` over NCCL, one rank a card, only where the
+  machine has two cards or more (a line says so otherwise).
 
 Any failed check raises, and the script exits non-zero.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
@@ -1347,6 +1373,7 @@ def delta_phase(streaming, son_mod, ops_, store, cfg, root, dev, card):
     build_launches = ops_.launch_counts()["support_count_packed"]
     append_n = int(APPEND_FRACTION * store.num_transactions)
     append_rows(path, append_n, seed=1)
+    shutil.copytree(path, os.path.join(root, "delta-mesh"))   # [mesh-stream]'s mine_delta
     ops_.reset_launch_counts()
     with DeltaLaunches(son_mod, streaming, path, cfg) as want:
         t0 = time.perf_counter()
@@ -1566,6 +1593,397 @@ def serve_cli_phase(store, root, dev, card):
                 chaos_p50=c["p50_ms"], chaos_p99=c["p99_ms"], refresh_s=c["refresh"]["latency_s"])
 
 
+# ------------------------------------------------------------------ mesh ---
+# The paper's Map/Reduce across ranks: the mesh phases spawn 4 or 6 ranks on
+# the one card (``launch.mesh.spawn``, gloo; NCCL refuses two ranks of one
+# card), each a process with its own CUDA context and kernel libraries (built
+# by this process before).  A rank function below runs in each; it resets
+# its rank's launch counts just before each path and reads them just after,
+# and returns digests and times for this process to check and log.
+MESH = (2, 2)                  # data x model: 50,000 rows and half of each bucket a rank
+MESH_CHUNK_ROWS = 8_191        # rounds up to 8,192 on 2 data shards
+MESH_TIMEOUT_S = 600.0
+
+
+def digest(res) -> str:
+    """A fingerprint of ``as_dict()``: equal digests are equal dicts."""
+    import hashlib
+
+    return hashlib.sha256(repr(sorted(res.as_dict().items())).encode()).hexdigest()
+
+
+class StopAfterSecondSave(Exception):
+    pass
+
+
+def _rank_setup(mesh):
+    """This rank's device made ready (its CUDA context), the time it was."""
+    torch.zeros(1, device=mesh.device)
+    torch.cuda.synchronize(mesh.device)
+    return time.time()
+
+
+class AllReduceTimes:
+    """Within ``with``: host time of every mesh all-reduce (the device
+    synchronised on both sides, so each is the collective alone)."""
+
+    def __enter__(self):
+        import importlib
+
+        self.mod = importlib.import_module("repro_torch.core.mapreduce")
+        self.fn, self.times = self.mod.all_reduce, []
+
+        def timed(x, mesh, axes, op="sum"):
+            torch.cuda.synchronize(mesh.device)
+            t0 = time.perf_counter()
+            out = self.fn(x, mesh, axes, op)
+            torch.cuda.synchronize(mesh.device)
+            self.times.append(time.perf_counter() - t0)
+            return out
+
+        self.mod.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.all_reduce = self.fn
+
+
+def _one_rank_at_a_time(mesh, fn):
+    """``fn()`` on each rank in turn, the others waiting: a kernel timed
+    without the other ranks' work on the card."""
+    out = None
+    for r in range(mesh.size):
+        if mesh.rank == r:
+            out = fn()
+        mesh.barrier()
+    return out
+
+
+def _allreduce_alone_ms(mesh, x, axes, reps=20) -> float:
+    """One all-reduce of ``x`` over ``axes`` with every rank there at once
+    (after a barrier, device synchronised): the collective without the
+    wait for the slowest rank that a mine's all-reduces include."""
+    import torch.distributed as dist
+
+    group = mesh.group(axes)
+    mesh.barrier()
+    dist.all_reduce(x, group=group)
+    torch.cuda.synchronize(mesh.device)
+    mesh.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dist.all_reduce(x, group=group)
+    torch.cuda.synchronize(mesh.device)
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _timed_run(mesh, ops, run, kernel):
+    """``run()`` from a barrier, with the launch counts reset just before
+    and read just after: (result, wall s, launches, all-reduce times)."""
+    ops.reset_launch_counts()
+    with AllReduceTimes() as ar:
+        mesh.barrier()
+        t0 = time.perf_counter()
+        res = run()
+        wall = time.perf_counter() - t0
+    return res, wall, ops.launch_counts()[kernel], ar.times
+
+
+def mesh_rank(mesh, paths):
+    """One rank of the (2, 2) mesh: ``[mesh]``, ``[mesh-dense]`` and
+    ``[mesh-stream]``, and K1 and K3 at this rank's level-2 blocks."""
+    ready = _rank_setup(mesh)
+    from repro_torch.core import incremental as inc
+    from repro_torch.core import streaming
+    from repro_torch.core.apriori import AprioriConfig, _candidate_quantum, _pad_bucket, _place_candidates
+    from repro_torch.core.apriori import mine, place_db
+    from repro_torch.core.candidates import generate_candidates
+    from repro_torch.core.son import mine_son
+    from repro_torch.data.store import open_store
+    from repro_torch.distributed.checkpoint import MiningCheckpoint
+    from repro_torch.kernels import ops
+
+    dev = mesh.device
+    db = np.load(paths["db"])
+    axes = dict(data_axes=("data",), model_axis="model")
+    cfg = AprioriConfig(min_support=0.002, max_k=4, representation="packed", packed_mode="and_cmp", **axes)
+    dense_cfg = AprioriConfig(min_support=0.002, max_k=4, **axes)
+    out = dict(rank=mesh.rank, ready=ready)
+
+    def record(tag, run, kernel):
+        res, wall, launches, times = _timed_run(mesh, ops, run, kernel)
+        out[tag] = dict(wall=wall, launches=launches, digest=digest(res), allreduce_ms=[t * 1e3 for t in times])
+        return res
+
+    record("mine", lambda: mine(db, cfg, device=dev, mesh=mesh), "support_count_packed")
+    record("son", lambda: mine_son(db, cfg, device=dev, mesh=mesh, num_partitions=8), "support_count_packed")
+    record("dense", lambda: mine(db, dense_cfg, device=dev, mesh=mesh), "support_count")
+
+    # K1 and K3 at this rank's blocks of the level-2 pass, each against its
+    # plain version on the same blocks, then timed one rank at a time
+    min_count = math.ceil(cfg.min_support * db.shape[0])
+    cands = generate_candidates(np.flatnonzero(db.sum(0, dtype=np.int64) >= min_count).astype(np.int32)[:, None])
+    kp = _pad_bucket(cands.shape[0], _candidate_quantum(cfg, mesh))
+    shapes = {}
+    for name, c_cfg, fn in (("k1", cfg, ops.support_count_packed), ("k3", dense_cfg, ops.support_count)):
+        t = place_db(db, c_cfg, dev, mesh=mesh)
+        c, ln = _place_candidates(cands, kp, db.shape[1], c_cfg, dev, mesh)
+        got, plain = fn(t, c, ln, impl="kernel"), fn(t, c, ln, impl="ref")
+        torch.cuda.synchronize()
+        shapes[name] = (t, c, ln, fn)
+        out[name] = dict(rows=int(t.shape[0]), cands=int(c.shape[0]),
+                         max_abs_err=float((got - plain).abs().max().item()))
+    for name, (t, c, ln, fn) in shapes.items():
+        ms = _one_rank_at_a_time(mesh, lambda: (fn(t, c, ln), cuda_ms(lambda: fn(t, c, ln), 10))[1])
+        out[name]["ms"] = ms
+    del shapes
+    out["allreduce_alone_ms"] = _allreduce_alone_ms(mesh, torch.zeros(kp, dtype=torch.int32, device=dev),
+                                                    ("data", "model"))
+
+    # [mesh-stream]: from [store]'s store
+    store = open_store(paths["store"])
+    record("stream", lambda: streaming.mine_streamed(store, cfg, device=dev, mesh=mesh,
+                                                     chunk_rows=MESH_CHUNK_ROWS), "support_count_packed")
+    record("stream_dense", lambda: streaming.mine_streamed(store, dense_cfg, device=dev, mesh=mesh,
+                                                           chunk_rows=MESH_CHUNK_ROWS), "support_count")
+    record("stream_son", lambda: streaming.mine_son_streamed(store, cfg, device=dev, mesh=mesh,
+                                                             chunk_rows=MESH_CHUNK_ROWS), "support_count_packed")
+
+    class StopAtSecondSave(MiningCheckpoint):
+        saves = 0
+
+        def save(self, state, store_fp, mine_fp):
+            seq = super().save(state, store_fp, mine_fp)
+            self.saves += 1
+            if self.saves == 2:
+                raise StopAfterSecondSave()
+            return seq
+
+    try:
+        streaming.mine_streamed(store, cfg, device=dev, mesh=mesh, chunk_rows=MESH_CHUNK_ROWS,
+                                checkpoint=StopAtSecondSave(paths["ckpt"]), checkpoint_every_chunks=4)
+        out["stopped"] = False
+    except StopAfterSecondSave:
+        out["stopped"] = True
+    ops.reset_launch_counts()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    res, rep = inc.mine_delta(open_store(paths["delta"]), cfg, dev, mesh=mesh)
+    out["delta"] = dict(wall=time.perf_counter() - t0, launches=ops.launch_counts()["support_count_packed"],
+                        digest=digest(res), mode=rep.mode)
+    return out
+
+
+def mesh_1d_rank(mesh, paths):
+    """One rank of the paper's 1-D layout (4, 1): the dense mine with both
+    axes splitting rows and no candidate split."""
+    ready = _rank_setup(mesh)
+    from repro_torch.core.apriori import AprioriConfig, mine
+    from repro_torch.kernels import ops
+
+    db = np.load(paths["db"])
+    cfg = AprioriConfig(min_support=0.002, max_k=4, data_axes=("data", "model"), model_axis=None)
+    res, wall, launches, times = _timed_run(mesh, ops, lambda: mine(db, cfg, device=mesh.device, mesh=mesh),
+                                            "support_count")
+    return dict(rank=mesh.rank, ready=ready, wall=wall, launches=launches, digest=digest(res),
+                allreduce_ms=[t * 1e3 for t in times])
+
+
+def mesh_recommend_rank(mesh, paths):
+    """One rank of the (2, 3) mesh: the 43,518-rule rulebook split over 3
+    rule shards (uneven: 43,520 rows pad to 43,521), the first 4,096 rows
+    recommended at batch 1,024 (512 baskets a data shard), and K2 at this
+    rank's blocks of the first batch against its plain version."""
+    ready = _rank_setup(mesh)
+    from repro_torch.core.itemsets import pack_bits
+    from repro_torch.core.mapreduce import shard_rows
+    from repro_torch.kernels import ops
+    from repro_torch.serving.recommend import recommend
+    from repro_torch.serving.rulebook import Rulebook, place_rulebook
+
+    dev = mesh.device
+    baskets = np.load(paths["db"], mmap_mode="r")[:4096]
+    placed = place_rulebook(Rulebook.load(paths["rulebook"]), dev, mesh=mesh)
+    rec, wall, launches, times = _timed_run(
+        mesh, ops, lambda: recommend(placed, baskets, top_k=10, batch_size=1024, device=dev, mesh=mesh),
+        "rule_match")
+    b = torch.from_numpy(np.ascontiguousarray(shard_rows(pack_bits(baskets[:1024]).view(np.int32), mesh,
+                                                         ("data",)))).to(dev)
+    cols = (placed.ante_packed, placed.ante_len, placed.cons_packed, placed.scores)
+    got, plain = ops.rule_match(b, *cols, impl="kernel"), ops.rule_match(b, *cols, impl="ref")
+    torch.cuda.synchronize()
+    ms = _one_rank_at_a_time(mesh, lambda: (ops.rule_match(b, *cols), cuda_ms(lambda: ops.rule_match(b, *cols), 20))[1])
+    alone = _allreduce_alone_ms(mesh, torch.zeros_like(got), ("model",))
+    return dict(rank=mesh.rank, ready=ready, wall=wall, launches=launches, allreduce_ms=[t * 1e3 for t in times],
+                allreduce_alone_ms=alone, score_bytes=got.numel() * 4,
+                items=rec.items, scores=rec.scores, baskets=int(b.shape[0]), rules=int(cols[0].shape[0]),
+                rows=placed.num_rows, num_rules=placed.num_rules, ms=ms,
+                max_abs_err=float((got - plain).abs().max().item()))
+
+
+def _setup_s(t_spawn, outs):
+    return max(o["ready"] for o in outs) - t_spawn
+
+
+def _spawn_mesh(fn, shape, paths, backend="gloo", device="cuda:0"):
+    from repro_torch.launch.mesh import spawn
+
+    t0 = time.time()
+    outs = spawn(fn, shape, ("data", "model"), device=device, backend=backend, timeout_s=MESH_TIMEOUT_S,
+                 args=(paths,))
+    return outs, _setup_s(t0, outs), time.time() - t0
+
+
+def _ar_line(times):
+    return (f"{len(times)} all-reduces, {np.mean(times):.3f} ms each (max {max(times):.3f})" if times
+            else "no all-reduce")
+
+
+def mesh_phase(streaming, ops, paths, want, passes, dev, card, backend="gloo", device="cuda:0", tag="mesh",
+               shape=MESH):
+    """``[mesh]``, ``[mesh-dense]`` and ``[mesh-stream]`` on a (2, 2) mesh
+    of 4 ranks: every rank's dicts identical to the single-device phases',
+    exact launch counts per rank; then the mine stopped on the mesh at its
+    second save resumed here without a mesh."""
+    from repro_torch.core.apriori import AprioriConfig
+    from repro_torch.distributed.checkpoint import MiningCheckpoint
+
+    from repro_torch.data.store import open_store
+
+    outs, setup_s, total_s = _spawn_mesh(mesh_rank, shape, paths, backend, device)
+    chunks = -(-open_store(paths["store"]).num_transactions // (MESH_CHUNK_ROWS + 1))
+    checks = {
+        "mine": ("main", passes["packed"]), "son": ("main", None), "dense": ("main", passes["dense"]),
+        "stream": ("main", passes["packed"] * chunks), "stream_dense": ("main", passes["dense"] * chunks),
+        "stream_son": ("main", None), "delta": ("delta", None),
+    }
+    for o in outs:
+        for key, (ref, launches) in checks.items():
+            if o[key]["digest"] != want[ref]:
+                raise AssertionError(f"[{tag}] rank {o['rank']}: {key} differs from the single-device result")
+            if o[key]["launches"] == 0 or (launches is not None and o[key]["launches"] != launches):
+                raise AssertionError(f"[{tag}] rank {o['rank']}: {key} launched its kernel "
+                                     f"{o[key]['launches']} times, expected {launches}")
+        if o["delta"]["mode"] != "delta" or not o["stopped"]:
+            raise AssertionError(f"[{tag}] rank {o['rank']}: delta mode {o['delta']['mode']}, stopped {o['stopped']}")
+        if o["k1"]["max_abs_err"] or o["k3"]["max_abs_err"]:
+            raise AssertionError(f"[{tag}] rank {o['rank']}: K1 or K3 differs from its plain version")
+    log(f"[{tag}] {len(outs)} ranks ({backend}, {device}) of a {shape[0]} x {shape[1]} data x model mesh: setup "
+        f"(spawn, imports, CUDA contexts, rendezvous, groups) {setup_s:.3f} s; whole spawn {total_s:.3f} s [{card}]")
+    for o in outs:
+        log(f"[{tag}] rank {o['rank']}: packed mine {o['mine']['wall']:.3f} s (K1 {o['mine']['launches']} launches, "
+            f"{_ar_line(o['mine']['allreduce_ms'])}, which wait for the slowest rank; one all-reduce of the "
+            f"pass's 256 KB alone {o['allreduce_alone_ms']:.3f} ms); mine_son over 8 partitions {o['son']['wall']:.3f} s "
+            f"(K1 {o['son']['launches']}); K1 at its level-2 blocks N={o['k1']['rows']} x Kp={o['k1']['cands']}: "
+            f"{o['k1']['ms']:.4f} ms, exact [{card}]")
+        log(f"[{tag}-dense] rank {o['rank']}: bf16 mine {o['dense']['wall']:.3f} s (K3 {o['dense']['launches']} "
+            f"launches, {_ar_line(o['dense']['allreduce_ms'])}); K3 at N={o['k3']['rows']} x "
+            f"Kp={o['k3']['cands']}: {o['k3']['ms']:.4f} ms, exact [{card}]")
+        log(f"[{tag}-stream] rank {o['rank']}: packed mine_streamed {o['stream']['wall']:.3f} s (K1 "
+            f"{o['stream']['launches']} = passes x {chunks} chunks of {MESH_CHUNK_ROWS + 1} rows, "
+            f"{_ar_line(o['stream']['allreduce_ms'])}); dense {o['stream_dense']['wall']:.3f} s (K3 "
+            f"{o['stream_dense']['launches']}); mine_son_streamed {o['stream_son']['wall']:.3f} s (K1 "
+            f"{o['stream_son']['launches']}); mine_delta {o['delta']['wall']:.3f} s (K1 {o['delta']['launches']}, "
+            f"mode {o['delta']['mode']}) [{card}]")
+    log(f"[{tag}] every rank dict-identical to [main] (mine, mine_son), [main-dense], [stream], [stream-dense], "
+        f"[stream-son] and [delta]")
+    if tag != "mesh":
+        return outs
+    # the checkpoint the mesh committed at its second save, resumed here
+    cfg = AprioriConfig(min_support=0.002, max_k=4, representation="packed")
+    state, _ = MiningCheckpoint(paths["ckpt"]).load_latest()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = streaming.mine_streamed(open_store(paths["store"]), cfg, device=dev, chunk_rows=MESH_CHUNK_ROWS + 1,
+                                  checkpoint=MiningCheckpoint(paths["ckpt"]), checkpoint_every_chunks=4, resume=True)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()["support_count_packed"]
+    if digest(got) != want["main"] or launches == 0 or launches >= passes["packed"] * chunks:
+        raise AssertionError(f"[mesh-stream] the mesh's checkpoint resumed without a mesh: dicts equal "
+                             f"{digest(got) == want['main']}, K1 {launches} launches")
+    log(f"[mesh-stream] the checkpoint the mesh committed at its second save (level {state.next_k}, chunk "
+        f"{state.chunks_done}, mid-level {state.mid_level}) resumed without a mesh: {wall:.3f} s, K1 {launches} "
+        f"launches, dict-identical to [main] [{card}]")
+    return outs
+
+
+def mesh_1d_phase(paths, want, passes, card):
+    """``[mesh-dense]`` in the paper's 1-D layout: (4, 1), rows over both axes."""
+    outs, setup_s, total_s = _spawn_mesh(mesh_1d_rank, (4, 1), paths)
+    for o in outs:
+        if o["digest"] != want["main"] or o["launches"] != passes["dense"]:
+            raise AssertionError(f"[mesh-dense] paper_1d rank {o['rank']}: dicts equal "
+                                 f"{o['digest'] == want['main']}, K3 {o['launches']} launches")
+        log(f"[mesh-dense] paper_1d (4, 1) rank {o['rank']}: bf16 mine {o['wall']:.3f} s, K3 {o['launches']} "
+            f"launches at 25,000 rows, {_ar_line(o['allreduce_ms'])} [{card}]")
+    log(f"[mesh-dense] paper_1d: setup {setup_s:.3f} s, whole spawn {total_s:.3f} s; every rank dict-identical "
+        f"to [main-dense] [{card}]")
+    return outs
+
+
+def mesh_recommend_phase(paths, rec, card):
+    """``[mesh-recommend]``: 6 ranks of a (2, 3) mesh; each rank's whole
+    result within rtol 1e-5, atol 1e-6 of [main]'s recommend, items equal
+    except within tolerance of a tie; K2 4 launches a rank."""
+    outs, setup_s, total_s = _spawn_mesh(mesh_recommend_rank, (2, 3), paths)
+    s = rec.scores
+    tie = np.abs(np.diff(s, axis=1)) <= ATOL + RTOL * np.abs(s[:, 1:])
+    close = np.zeros_like(s, dtype=bool)
+    close[:, 1:] |= tie
+    close[:, :-1] |= tie
+    for o in outs:
+        np.testing.assert_allclose(o["scores"], s, rtol=RTOL, atol=ATOL)
+        if not np.array_equal(o["items"][~close], rec.items[~close]) or o["launches"] != 4 \
+                or o["max_abs_err"] > ATOL + RTOL * float(np.abs(s[np.isfinite(s)]).max()):
+            raise AssertionError(f"[mesh-recommend] rank {o['rank']}: items or K2 differ, {o['launches']} launches")
+        log(f"[mesh-recommend] rank {o['rank']}: recommend of 4,096 baskets {o['wall']:.3f} s, K2 {o['launches']} "
+            f"launches; K2 at {o['baskets']} baskets x {o['rules']} rules {o['ms']:.4f} ms (plain max abs err "
+            f"{o['max_abs_err']:.2e}); {_ar_line(o['allreduce_ms'])}; the rule-axis all-reduce of a batch's "
+            f"{o['score_bytes']} B of scores alone {o['allreduce_alone_ms']:.3f} ms [{card}]")
+    log(f"[mesh-recommend] (2, 3): {outs[0]['num_rules']} rules in {outs[0]['rows']} rows over 3 rule shards; setup "
+        f"{setup_s:.3f} s, whole spawn {total_s:.3f} s; every rank within rtol {RTOL}, atol {ATOL} of [main]'s "
+        f"recommend, items equal except at {int(close.sum())} slots within tolerance of a tie [{card}]")
+    return outs
+
+
+def mesh_cli_phase(card):
+    """``[mesh-cli]``: the mine CLI under ``torchrun`` on a 2 x 2 mesh (4
+    ranks on the card, gloo) prints the single-device CLI's last line,
+    timings aside."""
+    flags = ["--transactions", "100000", "--items", "1000", "--avg-len", "10", "--seed", "0",
+             "--min-support", "0.002", "--max-k", "4", "--representation", "packed"]
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    lines = {}
+    for name, cmd in {
+        "single": [sys.executable, "-m", "repro_torch.launch.mine", *flags],
+        "mesh": [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4",
+                 "-m", "repro_torch.launch.mine", *flags, "--mesh", "2x2", "--backend", "gloo"],
+    }.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"[mesh-cli] {name} exited {proc.returncode}: {proc.stderr[-3000:]}")
+        last = json.loads(proc.stdout.strip().splitlines()[-1])
+        lines[name] = (last.pop("seconds"), last, time.perf_counter() - t0)
+    if lines["single"][1] != lines["mesh"][1]:
+        raise AssertionError(f"[mesh-cli] {lines['mesh'][1]} != {lines['single'][1]}")
+    log(f"[mesh-cli] torchrun --nproc-per-node 4 ... --mesh 2x2: {json.dumps(lines['mesh'][1])}, the single-device "
+        f"CLI's line; mine {lines['mesh'][0]:.3f} s vs {lines['single'][0]:.3f} s, process wall "
+        f"{lines['mesh'][2]:.3f} s vs {lines['single'][2]:.3f} s [{card}]")
+
+
+def mesh_nccl_phase(streaming, ops, paths, want, passes, dev, card):
+    """``[mesh-nccl]``: ``[mesh]`` with NCCL, one rank a card, where the
+    machine has at least 2 cards."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"[mesh-nccl] not run: {cards} card here, and NCCL takes one rank a card (two ranks of one "
+            f"communicator on one card are refused)")
+        return
+    mesh_phase(streaming, ops, paths, want, passes, dev, card, backend="nccl", device="cuda", tag="mesh-nccl",
+               shape=(2, 1) if cards < 4 else MESH)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke needs a CUDA card",
@@ -1759,6 +2177,20 @@ def main() -> int:
         serving["cli"] = serve_cli_phase(store, root, dev, card)
         log(f"[serving] {json.dumps(serving)}")
 
+        # ---- the mesh: 4-6 ranks on the card over gloo, each rank's launch
+        # counts set to 0 just before each of its paths and read just after
+        paths = dict(db=os.path.join(root, "db.npy"), store=store.path, delta=os.path.join(root, "delta-mesh"),
+                     ckpt=os.path.join(root, "mesh-ckpt"), rulebook=os.path.join(root, "rulebook.npz"))
+        np.save(paths["db"], db)
+        rb_host.save(paths["rulebook"])
+        want = dict(main=digest(res), delta=digest(delta_res))
+        mesh_passes = dict(packed=passes, dense=dense_passes)
+        mesh_outs = mesh_phase(streaming, ops, paths, want, mesh_passes, dev, card)
+        mesh_1d_phase(paths, want, mesh_passes, card)
+        rec_outs = mesh_recommend_phase(paths, rec, card)
+        mesh_cli_phase(card)
+        mesh_nccl_phase(streaming, ops, paths, want, mesh_passes, dev, card)
+
     # ---- K2 at the main path's batch shape
     k2 = k2_main_shape(ops, rb, pack_bits(db[:1024]), dev, card)
 
@@ -1772,7 +2204,10 @@ def main() -> int:
              stream_launches=k1_stream["launches"], stream_ms_per_launch=k1_stream["ms_per_launch"],
              stream_event_ms_per_launch=k1_stream["event_ms_per_launch"],
              swap_mine_launches=serving["swap"]["k1"], build_cache_launches=serving["delta"]["build_launches"],
-             delta_launches=serving["delta"]["launches"], refresh_launches=serving["refresh"]["k1"]),
+             delta_launches=serving["delta"]["launches"], refresh_launches=serving["refresh"]["k1"],
+             mesh_launches_per_rank=[o["mine"]["launches"] for o in mesh_outs],
+             mesh_ms_per_rank=[o["k1"]["ms"] for o in mesh_outs],
+             mesh_shape_per_rank=[mesh_outs[0]["k1"]["rows"], mesh_outs[0]["k1"]["cands"]]),
         dict(name="rule_match", route="cuda", source="src/repro_torch/kernels/csrc/rule_match.cu",
              replaces="src/repro/kernels/rule_match.py:86", launches=k2_launches,
              max_abs_err=k2["max_abs_err"], ms=k2["ms"], plain_ms=k2["plain_ms"],
@@ -1782,14 +2217,20 @@ def main() -> int:
              stream_event_ms_per_launch=k2_stream["event_ms_per_launch"],
              gateway_launches=serving["gateway"]["launches"], gateway_bucket_ms=serving["gateway"]["bucket_ms"],
              swap_launches=serving["swap"]["k2"], refresh_launches=serving["refresh"]["k2"],
-             router_launches=serving["router"]["launches"]),
+             router_launches=serving["router"]["launches"],
+             mesh_launches_per_rank=[o["launches"] for o in rec_outs],
+             mesh_ms_per_rank=[o["ms"] for o in rec_outs],
+             mesh_shape_per_rank=[rec_outs[0]["baskets"], rec_outs[0]["rules"]]),
         dict(name="support_count", route="cuda", source="src/repro_torch/kernels/csrc/support_count.cu",
              replaces="src/repro/kernels/support_count.py:69", launches=k3_launches,
              max_abs_err=k3["bf16"]["max_abs_err"], ms=k3["bf16"]["ms"], plain_ms=k3["bf16"]["plain_ms"],
              bound_ms=k3["bf16"]["bound_ms"], bound_by=k3["bf16"]["bound_by"], library_ms=None,
              gemm_ms=k3["bf16"]["gemm_ms"],
              stream_launches=k3_stream["launches"], stream_ms_per_launch=k3_stream["ms_per_launch"],
-             stream_event_ms_per_launch=k3_stream["event_ms_per_launch"]),
+             stream_event_ms_per_launch=k3_stream["event_ms_per_launch"],
+             mesh_launches_per_rank=[o["dense"]["launches"] for o in mesh_outs],
+             mesh_ms_per_rank=[o["k3"]["ms"] for o in mesh_outs],
+             mesh_shape_per_rank=[mesh_outs[0]["k3"]["rows"], mesh_outs[0]["k3"]["cands"]]),
     ]
     log(f"[k1] popcount mode at the same shape: {json.dumps(k1['popcount'])} [{card}]")
     log(f"[k3] int8 operands at the same shape: {json.dumps(k3['int8'])} [{card}]")

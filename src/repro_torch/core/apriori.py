@@ -18,8 +18,15 @@ depth-2 pipeline: the host places pass p+1 (a pinned-host, non-blocking
 copy) and launches its count before it waits on pass p's ``.cpu()``.
 Counting is exact (int32).
 
-A mesh (2-D data x model decomposition) is ROADMAP item 11; this module is
-the ``mesh=None`` path.
+On a mesh (``launch.mesh``, one process a rank) the level loop runs on
+every rank and generates the same candidates there (it is deterministic).
+The transaction rows are split over ``cfg.data_axes`` (the HDFS block
+layout) and the candidate rows over ``cfg.model_axis``, a 2-D
+decomposition of the paper's 1-D map phase (DESIGN.md §5): each rank
+places only its row block and its candidate block, counts them, and one
+all-reduce over the data and model axes sums the row blocks' partial counts
+and assembles the candidate blocks (``core.mapreduce``).  On a mesh of one
+rank every collective is skipped.
 """
 
 from __future__ import annotations
@@ -34,7 +41,8 @@ import torch
 
 from repro_torch.core import candidates as cand_mod
 from repro_torch.core import itemsets as enc
-from repro_torch.device import resolve_device
+from repro_torch.core.mapreduce import MapReduceJob, mapreduce, pad_rows_to_shards
+from repro_torch.launch.mesh import mesh_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import support_count as k3
 
@@ -120,12 +128,25 @@ def _check_cfg(cfg: AprioriConfig) -> None:
         raise ValueError(f"operand_dtype must be bf16|int8, got {cfg.operand_dtype!r}")
 
 
-def make_count_step(cfg: AprioriConfig) -> Callable:
-    """The support-count step ``fn(T, C, lengths (Kp,) int32) -> counts
-    (Kp,) int32`` on the operands' device.
+def _check_mesh(cfg: AprioriConfig, mesh) -> None:
+    if mesh is None:
+        return
+    axes = tuple(cfg.data_axes) + ((cfg.model_axis,) if cfg.model_axis else ())
+    if not cfg.data_axes or set(axes) - set(mesh.axes) or len(set(axes)) != len(axes):
+        raise ValueError(f"data_axes {cfg.data_axes} and model_axis {cfg.model_axis!r} must be "
+                         f"distinct axes of the mesh {tuple(mesh.axes)}")
+
+
+def make_count_step(cfg: AprioriConfig, mesh=None) -> Callable:
+    """The support-count step ``fn(T, C, lengths) -> counts (Kp,) int32``
+    on the operands' device.
 
     Dense:  T (N, Ip), C (Kp, Ip) {0,1} in the operand dtype (K3).
     Packed: T (N, W), C (Kp, W) int32 word views (K1).
+
+    On a mesh T is this rank's row block and C, lengths its candidate block
+    (Kp / model shards rows); the step is the Map/Reduce job that counts
+    them and returns every candidate's whole count on every rank.
     """
     _check_cfg(cfg)
     if cfg.representation == "dense":
@@ -138,12 +159,18 @@ def make_count_step(cfg: AprioriConfig) -> Callable:
         def count_step(t, c, ln):
             return kops.support_count_packed(t, c, ln, impl=cfg.count_impl, mode=cfg.packed_mode)
 
-    return count_step
+    if mesh is None:
+        return count_step
+    _check_mesh(cfg, mesh)
+    job = MapReduceJob(map_fn=count_step, reduce_axes=tuple(cfg.data_axes))
+    return mapreduce(job, mesh, gather_axis=cfg.model_axis)
 
 
-def place_db(t_np: np.ndarray, cfg: AprioriConfig, device="cuda") -> torch.Tensor:
+def place_db(t_np: np.ndarray, cfg: AprioriConfig, device="cuda", *, mesh=None) -> torch.Tensor:
     """Encode the dense {0,1} DB and place it on ``device`` ONCE for the
     whole mine: one int8 copy to the device, then the encoding there.
+    On a mesh, only this rank's row block (rows zero-padded to the data-shard
+    count: inert) is copied, to the mesh's device.
 
     Dense: (N, k3.item_width(I)) in the operand dtype — the zero-column pad
     and the cast (the JAX wrapper casts and pads the whole DB on every pass
@@ -151,13 +178,20 @@ def place_db(t_np: np.ndarray, cfg: AprioriConfig, device="cuda") -> torch.Tenso
     Packed: (N, W) int32 views of the uint32 bitset words, packed by
     ``ops.pack_bits_device`` and handed to :func:`place_words`.
     """
-    dev = resolve_device(device)
+    dev = mesh_device(device, mesh)
     _check_cfg(cfg)
     t_np = np.asarray(t_np, dtype=np.int8)
+    num_items = t_np.shape[1]
+    if mesh is not None:
+        _check_mesh(cfg, mesh)
+        index, shards = mesh.shard(cfg.data_axes)
+        t_np, _ = pad_rows_to_shards(t_np, shards)
+        rows = t_np.shape[0] // shards
+        t_np = np.ascontiguousarray(t_np[index * rows : (index + 1) * rows])
     t = torch.from_numpy(t_np).to(dev)
     if cfg.representation == "packed":
-        return place_words(kops.pack_bits_device(t), t_np.shape[1], cfg)
-    t = torch.nn.functional.pad(t, (0, k3.item_width(t_np.shape[1]) - t_np.shape[1]))
+        return place_words(kops.pack_bits_device(t), num_items, cfg)
+    t = torch.nn.functional.pad(t, (0, k3.item_width(num_items) - num_items))
     return t.to(k3.DTYPES[cfg.operand_dtype][1])
 
 
@@ -175,19 +209,31 @@ def place_words(words: torch.Tensor, num_items: int, cfg: AprioriConfig) -> torc
                                    k3.DTYPES[cfg.operand_dtype][1])
 
 
-def _candidate_quantum(cfg: AprioriConfig) -> int:
-    """Pad quantum for the candidate axis (one device: no model shards)."""
-    return max(cfg.candidate_pad, 1)
+def _candidate_quantum(cfg: AprioriConfig, mesh=None) -> int:
+    """Pad quantum for the candidate axis: at least ``candidate_pad``, and a
+    multiple of the model-shard count so every bucket splits evenly over
+    ``model_axis`` (``_pad_bucket`` only doubles, which keeps the
+    divisibility — e.g. 3 shards with pad 256 give buckets 258, 516, ...)."""
+    model_shards = mesh.shape[cfg.model_axis] if (mesh is not None and cfg.model_axis) else 1
+    quantum = max(cfg.candidate_pad, model_shards)
+    return ((quantum + model_shards - 1) // model_shards) * model_shards
 
 
-def _place_candidates(chunk: np.ndarray, kp: int, num_items: int, cfg: AprioriConfig, device):
+def _place_candidates(chunk: np.ndarray, kp: int, num_items: int, cfg: AprioriConfig, device,
+                      mesh=None):
     """Encode one candidate pass to device tensors, zero-padded to the
     bucket: (Kp, k3.item_width(I)) {0,1} rows in the operand dtype, or (Kp, W)
     int32 words; plus lengths with ``|c| = -1`` padding.  On CUDA the host
     buffers are pinned and the copies are non-blocking (dense rows cross as
     int8 and are cast on the device, in stream order), so the caller can
-    launch the count before earlier passes finish."""
+    launch the count before earlier passes finish.  On a mesh split over
+    ``model_axis``, only this rank's block of Kp / shards rows is encoded,
+    as tensors of their own (16-byte aligned for the kernels)."""
     dev = torch.device(device)
+    if mesh is not None and cfg.model_axis:
+        index, shards = mesh.shard((cfg.model_axis,))
+        kp //= shards
+        chunk = chunk[index * kp : (index + 1) * kp]
     if cfg.representation == "packed":
         c_host = np.zeros((kp, enc.packed_words(num_items)), dtype=np.uint32)
         c_host[: chunk.shape[0]] = enc.itemsets_to_packed(chunk, num_items)
@@ -207,16 +253,18 @@ def _place_candidates(chunk: np.ndarray, kp: int, num_items: int, cfg: AprioriCo
     return c_t, len_t
 
 
-def _count_level(count_step, t_dev, cand_sets: np.ndarray, num_items: int, cfg: AprioriConfig):
+def _count_level(count_step, t_dev, cand_sets: np.ndarray, num_items: int, cfg: AprioriConfig,
+                 mesh=None):
     """Count supports for one level's candidates, in padded passes.
 
     Depth-2 pipeline: pass p+1 is placed and its count launched before the
     host blocks on pass p's ``.cpu()``, so at most two passes of candidate
     tensors are live on the device (the bound ``max_candidates_per_pass``
-    exists to give).
+    exists to give).  On a mesh ``count_step`` is the mesh's step and
+    every rank gets every count.
     """
     k_total = cand_sets.shape[0]
-    quantum = _candidate_quantum(cfg)
+    quantum = _candidate_quantum(cfg, mesh)
     counts = np.zeros(k_total, dtype=np.int64)
     pending = []
 
@@ -228,7 +276,7 @@ def _count_level(count_step, t_dev, cand_sets: np.ndarray, num_items: int, cfg: 
     for start in range(0, k_total, cfg.max_candidates_per_pass):
         chunk = cand_sets[start : start + cfg.max_candidates_per_pass]
         kp = _pad_bucket(chunk.shape[0], quantum)
-        c_dev, len_dev = _place_candidates(chunk, kp, num_items, cfg, t_dev.device)
+        c_dev, len_dev = _place_candidates(chunk, kp, num_items, cfg, t_dev.device, mesh)
         pending.append((start, chunk.shape[0], count_step(t_dev, c_dev, len_dev)))
         _drain(limit=1)   # sync pass p only once pass p+1 is in flight
     _drain(limit=0)
@@ -311,23 +359,27 @@ def mine(
     cfg: AprioriConfig = AprioriConfig(),
     *,
     device="cuda",
+    mesh=None,
     checkpoint_cb: Callable | None = None,
     resume_state: dict | None = None,
 ) -> AprioriResult:
     """Level-wise Apriori over a dense {0,1} transaction matrix on ``device``.
 
+    ``mesh`` (``launch.mesh.Mesh``): run as this rank of a data x model
+    mesh, on the mesh's device; every rank returns the same result, equal
+    to the single-device mine's.
     checkpoint_cb(level_k, levels_dict): called after each completed level;
     ``resume_state`` = {'levels': ..., 'next_k': ...} restarts from one.
     """
-    dev = resolve_device(device)
+    dev = mesh_device(device, mesh)
     _check_cfg(cfg)
     t_np = np.asarray(transactions_dense, dtype=np.int8)
     n, num_items = t_np.shape
 
-    t_dev = place_db(t_np, cfg, dev)
-    count_step = make_count_step(cfg)
+    t_dev = place_db(t_np, cfg, dev, mesh=mesh)
+    count_step = make_count_step(cfg, mesh)
 
     def count_fn(cand_sets, level_k):
-        return _count_level(count_step, t_dev, cand_sets, num_items, cfg)
+        return _count_level(count_step, t_dev, cand_sets, num_items, cfg, mesh)
 
     return run_level_loop(count_fn, n, num_items, cfg, checkpoint_cb, resume_state)

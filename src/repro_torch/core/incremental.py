@@ -47,6 +47,11 @@ AND the cache generation it folds into — a crash mid-delta resumes without
 re-mining the appended partitions, and the cache itself is only rewritten
 at the very end via the store's atomic manifest swap, so a crash anywhere
 leaves the previous cache authoritative.
+
+On a mesh (``launch.mesh``) the streamed counts run on the mesh, the
+appended shards' local mines are dealt over the ranks, and rank 0 alone
+writes the count cache and the delta checkpoints; the other ranks wait for
+each write and then read the new manifest.
 """
 
 from __future__ import annotations
@@ -71,7 +76,7 @@ from repro_torch.distributed.checkpoint import (
     store_fingerprint,
 )
 from repro_torch.distributed.fault_tolerance import run_partitions
-from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import mesh_device
 
 CACHE_VERSION = 1
 
@@ -147,9 +152,19 @@ class DeltaReport:
 
 
 # ------------------------------------------------------------- persistence --
-def save_count_cache(store: TransactionStore, cache: CountCache) -> None:
+def save_count_cache(store: TransactionStore, cache: CountCache, mesh=None) -> None:
     """Sidecar arrays first, then the atomic manifest swap publishes them —
-    torn writes leave the previous cache generation authoritative."""
+    torn writes leave the previous cache generation authoritative.  On a
+    mesh rank 0 writes; the others wait, then read the new manifest."""
+    if mesh is not None:
+        if mesh.rank == 0:
+            save_count_cache(store, cache)
+        mesh.barrier()
+        if mesh.rank != 0:
+            from repro_torch.data.store import open_store
+
+            store.manifest = open_store(store.path).manifest
+        return
     fname = cache_filename(cache.seq)
     final = os.path.join(store.path, fname)
     tmp = final + ".tmp"
@@ -209,11 +224,13 @@ def build_count_cache(
     prefetch: int = 2,
     fault=None,
     obs=None,
+    *,
+    mesh=None,
 ) -> tuple[ap.AprioriResult, CountCache]:
     """Full SON mine that ALSO persists the pre-prune union counts as the
     count cache — the starting point (and the fallback) of the delta path."""
     res = st.mine_son_streamed(
-        store, cfg, device=device, chunk_rows=chunk_rows, prefetch=prefetch,
+        store, cfg, device=device, mesh=mesh, chunk_rows=chunk_rows, prefetch=prefetch,
         fault=fault, obs=obs, collect_union=True,
     )
     prev = store.count_cache_meta or {}
@@ -225,7 +242,7 @@ def build_count_cache(
         store_fp=store_fingerprint(store),
         levels=res.union_counts or {},
     )
-    save_count_cache(store, cache)
+    save_count_cache(store, cache, mesh)
     return res, cache
 
 
@@ -261,17 +278,17 @@ def cache_invalid_reason(
     return None
 
 
-def _delta_manager(checkpoint, store) -> MiningCheckpoint | None:
+def _delta_manager(checkpoint, store, mesh=None) -> MiningCheckpoint | None:
     if checkpoint is None or checkpoint is False:
         return None
     if isinstance(checkpoint, MiningCheckpoint):
-        return checkpoint
+        return checkpoint.on_mesh(mesh)
     if checkpoint is True:
         # separate namespace from full-mine snapshots: the fingerprints
         # differ by construction, but keeping the dirs apart means a delta
         # clear() never deletes a full mine's resume state
-        return MiningCheckpoint(os.path.join(store.checkpoint_path, "delta"))
-    return MiningCheckpoint(str(checkpoint))
+        return MiningCheckpoint(os.path.join(store.checkpoint_path, "delta")).on_mesh(mesh)
+    return MiningCheckpoint(str(checkpoint)).on_mesh(mesh)
 
 
 def delta_fingerprints(
@@ -298,6 +315,8 @@ def mine_delta(
     max_drift_fraction: float = DEFAULT_MAX_DRIFT_FRACTION,
     update_cache: bool = True,
     obs=None,
+    *,
+    mesh=None,
 ) -> tuple[ap.AprioriResult, DeltaReport]:
     """Mine the grown store incrementally against its persisted count cache.
 
@@ -306,9 +325,10 @@ def mine_delta(
     (delta / full fallback / noop) and why. On success the cache is advanced
     to cover the whole store (``update_cache=False`` skips that, for
     read-only probes). ``checkpoint=True|path|manager`` + ``resume=True``
-    give phase-boundary crash recovery via the checkpoint machinery.
+    give phase-boundary crash recovery via the checkpoint machinery.  On a
+    ``mesh`` every rank returns the same result and report.
     """
-    dev = resolve_device(device)
+    dev = mesh_device(device, mesh)
     ap._check_cfg(cfg)
     n_total = store.num_transactions
     min_count = max(1, math.ceil(cfg.min_support * n_total))
@@ -319,7 +339,7 @@ def mine_delta(
             mgr.clear()
         res, _ = build_count_cache(
             store, cfg, dev, chunk_rows=chunk_rows, prefetch=prefetch,
-            fault=fault, obs=obs,
+            fault=fault, obs=obs, mesh=mesh,
         )
         base = cache.n if cache is not None else 0
         return res, DeltaReport(
@@ -350,7 +370,7 @@ def mine_delta(
     if delta_rows > max_delta_fraction * n_total:
         return full("delta_fraction")
 
-    mgr = _delta_manager(checkpoint, store)
+    mgr = _delta_manager(checkpoint, store, mesh)
     store_fp, mine_fp = delta_fingerprints(store, cache, cfg, chunk_rows)
     restored: MiningState | None = None
     if mgr is not None:
@@ -372,7 +392,12 @@ def mine_delta(
             else {}
         )
     if restored is None:
-        if fault is None:
+        if fault is None and mesh is not None:
+            new_union = son_mod.union_over_mesh(
+                lambda p: son_mod.local_winners(store.partition_dense(base_shards + p), cfg, dev),
+                delta_shards, mesh,
+            )
+        elif fault is None:
             new_union = son_mod.union_local_winners(
                 (
                     store.partition_dense(p)
@@ -437,7 +462,7 @@ def mine_delta(
         }
     else:
         delta_counts = st.count_union_streamed(
-            store, union_arrays, cfg, device=dev, chunk_rows=chunk_rows,
+            store, union_arrays, cfg, device=dev, mesh=mesh, chunk_rows=chunk_rows,
             prefetch=prefetch, shards=(base_shards, store.num_partitions),
             obs=obs,
         )
@@ -458,7 +483,7 @@ def mine_delta(
     novel_arrays = son_mod.winners_to_arrays(novel)
     novel_base = (
         st.count_union_streamed(
-            store, novel_arrays, cfg, device=dev, chunk_rows=chunk_rows,
+            store, novel_arrays, cfg, device=dev, mesh=mesh, chunk_rows=chunk_rows,
             prefetch=prefetch, shards=(0, base_shards), obs=obs,
         )
         if novel_arrays
@@ -500,6 +525,7 @@ def mine_delta(
                 store_fp=store_fingerprint(store),
                 levels=new_levels,
             ),
+            mesh,
         )
     if mgr is not None:
         mgr.clear()

@@ -1,0 +1,163 @@
+"""Generic Map/Combine/Reduce engine over a ``torch.distributed`` mesh.
+
+The paper's Hadoop pipeline is: map over HDFS partitions -> local combine ->
+hash shuffle -> reduce per key.  On a mesh the key space is dense (tensor
+indices), so the shuffle and reduce become one all-reduce (sum, max or min)
+of each rank's partial over the data axes (DESIGN.md §2).  Every rank runs
+the same program on its own shard (``launch.mesh``: one process a rank);
+``core.apriori`` instantiates the engine for support counting and
+``serving.recommend`` for rule matching, and :func:`hierarchical_psum`
+models the paper's rack-local combiner tier.
+
+An output split over another axis (the candidate axis over ``"model"``) is
+made whole on every rank by :func:`gather_rows`: each rank writes its slice
+into a zero-filled full-length tensor and one all-reduce over the group that
+spans the split axis and the reduce axes adds them.  Adding zeros is exact,
+and the group is never the whole world: a mesh axis outside both would add
+its replicas' copies again.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+_REDUCERS = {
+    "sum": dist.ReduceOp.SUM,
+    "max": dist.ReduceOp.MAX,
+    "min": dist.ReduceOp.MIN,
+}
+
+
+def _tree_map(fn, x):
+    """``fn`` on every tensor of a tensor, tuple, list or dict of them."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(_tree_map(fn, v) for v in x)
+    if isinstance(x, dict):
+        return {k: _tree_map(fn, v) for k, v in x.items()}
+    return fn(x)
+
+
+def all_reduce(x, mesh, axes, op: str = "sum"):
+    """Reduce ``x`` (a tensor or a tuple/list/dict of them) over the mesh
+    ``axes`` in place; every rank of the group gets the result.  A group of
+    one rank is left alone."""
+    if op not in _REDUCERS:
+        raise ValueError(f"unknown reduce_op {op!r}")
+    axes = tuple(axes)
+    if not axes or mesh.group_size(axes) == 1:
+        return x
+    group = mesh.group(axes)
+
+    def reduce(t):
+        dist.all_reduce(t, op=_REDUCERS[op], group=group)
+        return t
+
+    return _tree_map(reduce, x)
+
+
+def gather_rows(x: torch.Tensor, mesh, axes, *, reduce_axes=()) -> torch.Tensor:
+    """The whole of a tensor split by rows over ``axes`` (this rank holds
+    block ``mesh.shard(axes)``), on every rank; with ``reduce_axes`` the
+    blocks are also summed over those axes in the same all-reduce."""
+    axes = tuple(axes)
+    if not axes or mesh.group_size(axes) == 1:
+        return all_reduce(x, mesh, reduce_axes)
+    index, count = mesh.shard(axes)
+    rows = x.shape[0]
+    full = torch.zeros((rows * count,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    full[index * rows : (index + 1) * rows] = x
+    return all_reduce(full, mesh, axes + tuple(a for a in reduce_axes if a not in axes))
+
+
+@dataclasses.dataclass(frozen=True)
+class MapReduceJob:
+    """A Hadoop-style job description.
+
+    map_fn:      per-shard function ``(*shard_args) -> tensor(s)`` — the map
+                 task with its combiner already folded in (emit *partial
+                 sums*, not per-record pairs; Hadoop combiners do the same).
+    reduce_axes: mesh axes over which partials are reduced (the shuffle).
+    reduce_op:   'sum' | 'max' | 'min'.
+    """
+
+    map_fn: Callable[..., Any]
+    reduce_axes: tuple[str, ...]
+    reduce_op: str = "sum"
+
+
+def mapreduce(job: MapReduceJob, mesh, *, gather_axis: str | None = None) -> Callable[..., Any]:
+    """Run a :class:`MapReduceJob` on this rank of ``mesh``.
+
+    Returns ``fn(*shard_args) -> reduced``: the map on this rank's shards,
+    then the reduce over ``job.reduce_axes``; every rank of those axes gets
+    the result.  With ``gather_axis``, the map's output is this rank's row
+    block of a tensor split over that axis (sum jobs only) and the result is
+    the whole tensor on every rank (:func:`gather_rows`).
+    """
+    if job.reduce_op not in _REDUCERS:
+        raise ValueError(f"unknown reduce_op {job.reduce_op!r}")
+    if gather_axis is not None and job.reduce_op != "sum":
+        raise ValueError("gather_axis assembles blocks by adding zeros: sum jobs only")
+    axes = tuple(job.reduce_axes)
+
+    def fn(*args):
+        partial = job.map_fn(*args)
+        if gather_axis is None:
+            return all_reduce(partial, mesh, axes, job.reduce_op)
+        return _tree_map(lambda t: gather_rows(t, mesh, (gather_axis,), reduce_axes=axes), partial)
+
+    return fn
+
+
+def hierarchical_psum(
+    x: Any,
+    mesh,
+    inner_axes: tuple[str, ...],
+    outer_axes: tuple[str, ...] = (),
+    outer_transform: tuple[Callable, Callable] | None = None,
+) -> Any:
+    """Two-level reduction: sum within ``inner_axes`` (the fast links), then
+    over ``outer_axes`` (the slow ones), optionally transforming the payload
+    for the outer hop (e.g. narrowing partial counts before the cross-pod
+    hop): ``encode`` before it, ``decode`` after."""
+    y = all_reduce(x, mesh, inner_axes)
+    if not outer_axes:
+        return y
+    if outer_transform is None:
+        return all_reduce(y, mesh, outer_axes)
+    encode, decode = outer_transform
+    return decode(all_reduce(encode(y), mesh, outer_axes))
+
+
+def shard_rows(x, mesh, axes):
+    """This rank's contiguous row block of ``x`` split over ``axes`` (the
+    HDFS block layout, ``PartitionSpec(axes, None)``).  The row count must
+    divide evenly (:func:`pad_rows_to_shards`)."""
+    index, count = mesh.shard(tuple(axes))
+    if x.shape[0] % count:
+        raise ValueError(f"{x.shape[0]} rows do not split over {count} shards; pad them first")
+    rows = x.shape[0] // count
+    return x[index * rows : (index + 1) * rows]
+
+
+def pad_rows_to_shards(arr: np.ndarray, num_shards: int):
+    """Pad axis 0 to a multiple of num_shards with zero rows.
+
+    Zero transaction rows are inert for support counting in both device
+    representations: dense — every real candidate has |c| >= 1 and
+    <0-row, c> == 0 != |c|; packed uint32 — a zero row misses every set
+    candidate bit, so ``t & c == c`` fails (DESIGN.md §3). The row partition
+    is payload-agnostic: over int8 items or uint32 words alike.
+    Returns (padded, original_n).
+    """
+    n = arr.shape[0]
+    rem = (-n) % num_shards
+    if rem == 0:
+        return arr, n
+    pad = np.zeros((rem,) + arr.shape[1:], dtype=arr.dtype)
+    return np.concatenate([np.asarray(arr), pad], axis=0), n

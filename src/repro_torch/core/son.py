@@ -16,6 +16,11 @@ regardless of depth:
 Both phases count through the caller's representation: K3 for dense, K1
 for packed.  ``winners_to_arrays`` / ``arrays_to_winners`` are the phase-1
 union's exchange format, byte-equal to the JAX package's.
+
+On a mesh (``launch.mesh``) the partitions of phase 1 are dealt over the
+ranks (rank r mines partitions r, r + ranks, ...) and every rank gathers
+every winner set, so the union is the same on every rank; phase 2 is the
+mesh's count step (``apriori.make_count_step(cfg, mesh)``).
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import math
 import numpy as np
 
 from repro_torch.core import apriori as ap
-from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import mesh_device
 
 
 def _mine_local(t_np: np.ndarray, min_count: int, cfg: ap.AprioriConfig, device) -> dict:
@@ -70,6 +75,15 @@ def union_local_winners(partitions, cfg: ap.AprioriConfig, device="cuda") -> dic
     return merge_winners(local_winners(part, cfg, device) for part in partitions)
 
 
+def union_over_mesh(map_partition, num_partitions: int, mesh) -> dict:
+    """The phase-1 map dealt over the ranks of ``mesh``: this rank runs
+    ``map_partition(p)`` for p = rank, rank + ranks, ..., then every rank
+    gathers every rank's winner sets (over the host group) and unions them.
+    Set union is order-free, so every rank holds the same union."""
+    mine = [map_partition(p) for p in range(mesh.rank, num_partitions, mesh.size)]
+    return merge_winners(w for ws in mesh.all_gather_object(mine) for w in ws)
+
+
 def winners_to_arrays(union: dict) -> dict:
     """Canonicalize a phase-1 union ``k -> set of tuples`` into sorted
     ``k -> (K, k) int32`` candidate arrays.  Sorting makes the layout
@@ -94,12 +108,14 @@ def mine_son(
     cfg: ap.AprioriConfig = ap.AprioriConfig(),
     *,
     device="cuda",
+    mesh=None,
     num_partitions: int = 8,
 ) -> ap.AprioriResult:
     """SON over a dense {0,1} transaction matrix on ``device``: phase 1
     mines ``num_partitions`` row ranges locally, phase 2 counts their union
-    once over the whole DB."""
-    dev = resolve_device(device)
+    once over the whole DB.  On a ``mesh`` every rank returns the same
+    result."""
+    dev = mesh_device(device, mesh)
     ap._check_cfg(cfg)
     t_np = np.asarray(transactions_dense, dtype=np.int8)
     n, num_items = t_np.shape
@@ -107,16 +123,21 @@ def mine_son(
 
     # ---- phase 1: local mining per partition, union of local winners ----
     bounds = np.linspace(0, n, num_partitions + 1).astype(int)
-    union = union_local_winners(
-        (t_np[bounds[p] : bounds[p + 1]] for p in range(num_partitions)), cfg, dev
-    )
+    if mesh is None:
+        union = union_local_winners(
+            (t_np[bounds[p] : bounds[p + 1]] for p in range(num_partitions)), cfg, dev
+        )
+    else:
+        union = union_over_mesh(
+            lambda p: local_winners(t_np[bounds[p] : bounds[p + 1]], cfg, dev), num_partitions, mesh
+        )
 
     # ---- phase 2: one exact count of the union over the whole DB ----
-    count_step = ap.make_count_step(cfg)
-    t_dev = ap.place_db(t_np, cfg, dev)
+    count_step = ap.make_count_step(cfg, mesh)
+    t_dev = ap.place_db(t_np, cfg, dev, mesh=mesh)
     levels = {}
     for k, cands in winners_to_arrays(union).items():
-        sup = ap._count_level(count_step, t_dev, cands, num_items, cfg)
+        sup = ap._count_level(count_step, t_dev, cands, num_items, cfg, mesh)
         keep = sup >= min_count
         if keep.any():
             levels[k] = (cands[keep], sup[keep])

@@ -37,6 +37,16 @@ Fault tolerance (DESIGN.md §11):
     partitions through ``distributed.fault_tolerance.run_partitions`` —
     bounded-retry re-execution plus speculative re-issue of stragglers.
 
+On a mesh (``launch.mesh``) every rank streams the same chunks, rounded up
+to a multiple of the data-shard count (67 rows become 68 on a 2 x 3 mesh;
+the padding rows are inert), and copies only its row block of each; the
+candidates split over the model axis as in memory.  Each rank folds its
+partial counts into its own accumulator, and the accumulators are reduced
+over the mesh once a pass, and before every checkpoint save, so a
+checkpoint holds whole counts (integer sums make this identical to reducing
+every chunk, as the JAX package does).  SON's phase 1 deals the shards over
+the ranks (``son.union_over_mesh``).
+
 ``obs`` is an optional mining observer with the JAX package's hooks
 (``add_phase``, ``on_chunk``, ``observe_max_candidate_bucket`` and the level
 loop's); observation only.
@@ -53,8 +63,9 @@ import torch
 
 from repro_torch.core import apriori as ap
 from repro_torch.core import son as son_mod
+from repro_torch.core.mapreduce import gather_rows
 from repro_torch.data.pipeline import ShardedBatchIterator
-from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import mesh_device
 from repro_torch.distributed.checkpoint import (
     CheckpointMismatch,
     MiningCheckpoint,
@@ -84,16 +95,41 @@ def make_accum_count_step(cfg: ap.AprioriConfig, num_items: int) -> Callable:
     return step
 
 
-def _init_acc(kp: int, device, init: np.ndarray | None = None) -> torch.Tensor:
+def _init_acc(kp: int, device, init: np.ndarray | None = None, cfg=None, mesh=None) -> torch.Tensor:
+    """A pass's int32 accumulator for a bucket of ``kp`` candidates: on a
+    mesh, this rank's block of them over the model axis.  ``init`` (whole
+    reduced counts from a checkpoint) seeds the first data shard's block
+    only, so the reduce over the data axes counts it once."""
+    if mesh is not None:
+        m, shards = mesh.shard((cfg.model_axis,)) if cfg.model_axis else (0, 1)
+        kp //= shards
+        if init is not None:
+            init = init[m * kp : (m + 1) * kp] if mesh.shard(cfg.data_axes)[0] == 0 else None
     if init is None:
         return torch.zeros(kp, dtype=torch.int32, device=device)
     return torch.from_numpy(np.array(init, dtype=np.int32)).to(device)
 
 
-def _check_chunk_rows(chunk_rows: int) -> int:
+def _reduced(acc: torch.Tensor, cfg, mesh) -> np.ndarray:
+    """A pass's whole (Kp,) counts on the host of every rank: this rank's
+    partial block summed over the data axes and assembled over the model
+    axis (``mapreduce.gather_rows``).  ``acc`` itself is left as it is."""
+    if mesh is None:
+        return acc.cpu().numpy()
+    model = (cfg.model_axis,) if cfg.model_axis else ()
+    return gather_rows(acc.clone(), mesh, model, reduce_axes=tuple(cfg.data_axes)).cpu().numpy()
+
+
+def _effective_chunk_rows(chunk_rows: int, cfg, mesh) -> int:
+    """Round the chunk up to a multiple of the data-shard count so every
+    chunk splits evenly over the data axes (padding rows are inert)."""
     if chunk_rows < 1:
         raise ValueError("chunk_rows must be >= 1")
-    return chunk_rows
+    if mesh is None:
+        return chunk_rows
+    ap._check_mesh(cfg, mesh)
+    shards = mesh.shard(tuple(cfg.data_axes))[1]
+    return -(-chunk_rows // shards) * shards
 
 
 def _packed_chunks(store, chunk_rows: int, start_chunk: int = 0, shards: tuple | None = None):
@@ -120,6 +156,9 @@ def _count_pass_chunks(
     save_every: int = 0,
     save_fn: Callable | None = None,
     obs=None,
+    *,
+    cfg,
+    mesh=None,
 ):
     """Fold every DB chunk into a device accumulator; sync ONCE — unless a
     mid-pass checkpoint cadence is set, in which case each save adds exactly
@@ -134,18 +173,19 @@ def _count_pass_chunks(
     blocking on the chunk iterator, ``count_kernel`` the (asynchronous)
     dispatch of the accumulate step, ``host_sync`` the final device -> host
     copy that also drains the device queue, ``checkpoint_write`` the
-    mid-pass saves.
+    mid-pass saves.  On a mesh ``kp`` is the whole bucket, the fold is
+    this rank's, and the result and each save are the reduced counts.
     """
-    acc = _init_acc(kp, device, init=init_acc)
+    acc = _init_acc(kp, device, init=init_acc, cfg=cfg, mesh=mesh)
     done = chunks_done
-    it = ShardedBatchIterator(chunks, device, prefetch=prefetch)
+    it = ShardedBatchIterator(chunks, device, mesh=mesh, data_axes=cfg.data_axes, prefetch=prefetch)
     try:
         if obs is None:
             for t_chunk in it:
                 accum_step(t_chunk, c_dev, len_dev, acc)
                 done += 1
                 if save_fn is not None and save_every > 0 and done % save_every == 0:
-                    save_fn(acc.cpu().numpy(), done)
+                    save_fn(_reduced(acc, cfg, mesh), done)
         else:
             src = iter(it)
             while True:
@@ -163,14 +203,14 @@ def _count_pass_chunks(
                 done += 1
                 if save_fn is not None and save_every > 0 and done % save_every == 0:
                     t3 = time.perf_counter()
-                    save_fn(acc.cpu().numpy(), done)
+                    save_fn(_reduced(acc, cfg, mesh), done)
                     obs.add_phase("checkpoint_write", t3, time.perf_counter())
     finally:
         it.close()
     if obs is None:
-        return acc.cpu().numpy()   # the final host sync of this candidate pass
+        return _reduced(acc, cfg, mesh)   # the final host sync of this candidate pass
     t0 = time.perf_counter()
-    out = acc.cpu().numpy()
+    out = _reduced(acc, cfg, mesh)
     obs.add_phase("host_sync", t0, time.perf_counter())
     return out
 
@@ -181,6 +221,7 @@ def count_supports_streamed(
     cfg: ap.AprioriConfig = ap.AprioriConfig(),
     *,
     device="cuda",
+    mesh=None,
     chunk_rows: int = 8192,
     prefetch: int = 2,
     obs=None,
@@ -193,13 +234,13 @@ def count_supports_streamed(
     Equals the whole-DB count exactly, for both representations, at any
     ``chunk_rows`` (the final chunk zero-pads, and zero rows are inert).
     """
-    dev = resolve_device(device)
+    dev = mesh_device(device, mesh)
     ap._check_cfg(cfg)
     cand_sets = np.asarray(cand_sets, dtype=np.int32)
     accum_step = make_accum_count_step(cfg, store.num_items)
     return _count_level_streamed(
-        accum_step, store, cand_sets, store.num_items, cfg, dev, _check_chunk_rows(chunk_rows),
-        prefetch, obs=obs,
+        accum_step, store, cand_sets, store.num_items, cfg, dev,
+        _effective_chunk_rows(chunk_rows, cfg, mesh), prefetch, obs=obs, mesh=mesh,
     )
 
 
@@ -216,6 +257,7 @@ def _count_level_streamed(
     save_cb: Callable | None = None,
     save_every: int = 0,
     obs=None,
+    mesh=None,
 ):
     """One level's candidate passes over the store.
 
@@ -226,7 +268,7 @@ def _count_level_streamed(
     is invoked every ``save_every`` chunks with the level's cursor state.
     """
     k_total = cand_sets.shape[0]
-    quantum = ap._candidate_quantum(cfg)
+    quantum = ap._candidate_quantum(cfg, mesh)
     counts = np.zeros(k_total, dtype=np.int64)
     start0, resume_chunks, resume_acc = 0, 0, None
     if cursor is not None:
@@ -245,13 +287,13 @@ def _count_level_streamed(
         kp = ap._pad_bucket(chunk_c.shape[0], quantum)
         if obs is not None:
             obs.observe_max_candidate_bucket(kp)
-        c_dev, len_dev = ap._place_candidates(chunk_c, kp, num_items, cfg, device)
+        c_dev, len_dev = ap._place_candidates(chunk_c, kp, num_items, cfg, device, mesh)
         init_acc, start_chunk = None, 0
         if resume_acc is not None:   # first pass after a mid-level resume only
             if resume_acc.shape[0] != kp:
                 raise CheckpointMismatch(
                     f"saved accumulator has {resume_acc.shape[0]} slots, this pass "
-                    f"pads to {kp} — candidate bucketing (candidate_pad) changed"
+                    f"pads to {kp} — candidate bucketing (candidate_pad / mesh) changed"
                 )
             init_acc, start_chunk = resume_acc, resume_chunks
             resume_acc = None
@@ -263,20 +305,20 @@ def _count_level_streamed(
         out = _count_pass_chunks(
             accum_step, _packed_chunks(store, chunk_rows, start_chunk), c_dev, len_dev, kp,
             device, prefetch, init_acc=init_acc, chunks_done=start_chunk,
-            save_every=save_every, save_fn=save_fn, obs=obs,
+            save_every=save_every, save_fn=save_fn, obs=obs, cfg=cfg, mesh=mesh,
         )
         counts[start : start + chunk_c.shape[0]] = out[: chunk_c.shape[0]]
     return counts
 
 
-def _as_manager(checkpoint, store) -> MiningCheckpoint | None:
+def _as_manager(checkpoint, store, mesh=None) -> MiningCheckpoint | None:
     if checkpoint is None or checkpoint is False:
         return None
     if isinstance(checkpoint, MiningCheckpoint):
-        return checkpoint
+        return checkpoint.on_mesh(mesh)
     if checkpoint is True:
-        return MiningCheckpoint(store.checkpoint_path)
-    return MiningCheckpoint(str(checkpoint))
+        return MiningCheckpoint(store.checkpoint_path).on_mesh(mesh)
+    return MiningCheckpoint(str(checkpoint)).on_mesh(mesh)
 
 
 def mine_streamed(
@@ -284,6 +326,7 @@ def mine_streamed(
     cfg: ap.AprioriConfig = ap.AprioriConfig(),
     *,
     device="cuda",
+    mesh=None,
     chunk_rows: int = 8192,
     prefetch: int = 2,
     checkpoint_cb: Callable | None = None,
@@ -309,16 +352,17 @@ def mine_streamed(
     against the store and config fingerprints) and continues; the result is
     dict-identical to an uninterrupted mine.  ``checkpoint_cb`` /
     ``resume_state`` remain the raw level-boundary hooks and compose with
-    the manager.
+    the manager.  On a ``mesh`` rank 0 writes the checkpoints and every rank
+    returns the same result.
     """
-    dev = resolve_device(device)
+    dev = mesh_device(device, mesh)
     ap._check_cfg(cfg)
     n, num_items = store.num_transactions, store.num_items
-    chunk_rows = _check_chunk_rows(chunk_rows)
+    chunk_rows = _effective_chunk_rows(chunk_rows, cfg, mesh)
     if checkpoint_every_chunks < 0:
         raise ValueError("checkpoint_every_chunks must be >= 0")
     accum_step = make_accum_count_step(cfg, num_items)
-    mgr = _as_manager(checkpoint, store)
+    mgr = _as_manager(checkpoint, store, mesh)
 
     if mgr is None:
         if resume:
@@ -327,6 +371,7 @@ def mine_streamed(
         def count_fn(cand_sets, level_k):
             return _count_level_streamed(
                 accum_step, store, cand_sets, num_items, cfg, dev, chunk_rows, prefetch, obs=obs,
+                mesh=mesh,
             )
 
         return ap.run_level_loop(count_fn, n, num_items, cfg, checkpoint_cb, resume_state, obs=obs)
@@ -385,6 +430,7 @@ def mine_streamed(
             save_cb=save_cb if checkpoint_every_chunks > 0 else None,
             save_every=checkpoint_every_chunks,
             obs=obs,
+            mesh=mesh,
         )
 
     result = ap.run_level_loop(count_fn, n, num_items, cfg, level_cb, resume_state, obs=obs)
@@ -398,6 +444,7 @@ def count_union_streamed(
     cfg: ap.AprioriConfig = ap.AprioriConfig(),
     *,
     device="cuda",
+    mesh=None,
     chunk_rows: int = 8192,
     prefetch: int = 2,
     shards: tuple | None = None,
@@ -411,14 +458,15 @@ def count_union_streamed(
     passes are placed on the device up front (the union is the modest
     survivor set, not a full level's candidates), then every DB chunk folds
     into every pass's accumulator: one launch per (chunk, pass).  This is
-    SON's phase 2, and the incremental miner's union count.
+    SON's phase 2, and the incremental miner's union count.  On a ``mesh``
+    every accumulator is reduced once, after the last chunk.
     """
-    dev = resolve_device(device)
+    dev = mesh_device(device, mesh)
     ap._check_cfg(cfg)
-    chunk_rows = _check_chunk_rows(chunk_rows)
+    chunk_rows = _effective_chunk_rows(chunk_rows, cfg, mesh)
     num_items = store.num_items
     accum_step = make_accum_count_step(cfg, num_items)
-    quantum = ap._candidate_quantum(cfg)
+    quantum = ap._candidate_quantum(cfg, mesh)
     per_level = {
         k: np.asarray(cands, dtype=np.int32)
         for k, cands in sorted(per_level.items())
@@ -431,11 +479,12 @@ def count_union_streamed(
             kp = ap._pad_bucket(chunk_c.shape[0], quantum)
             if obs is not None:
                 obs.observe_max_candidate_bucket(kp)
-            c_dev, len_dev = ap._place_candidates(chunk_c, kp, num_items, cfg, dev)
-            units.append((k, start, chunk_c.shape[0], c_dev, len_dev, _init_acc(kp, dev)))
+            c_dev, len_dev = ap._place_candidates(chunk_c, kp, num_items, cfg, dev, mesh)
+            units.append((k, start, chunk_c.shape[0], c_dev, len_dev,
+                          _init_acc(kp, dev, cfg=cfg, mesh=mesh)))
     if units:
         it = ShardedBatchIterator(_packed_chunks(store, chunk_rows, shards=shards), dev,
-                                  prefetch=prefetch)
+                                  mesh=mesh, data_axes=cfg.data_axes, prefetch=prefetch)
         try:
             if obs is None:
                 for t_chunk in it:
@@ -460,13 +509,9 @@ def count_union_streamed(
             it.close()
 
     t_sync0 = time.perf_counter()
-    counts = {}
-    for k, cands in per_level.items():
-        sup = np.zeros(cands.shape[0], dtype=np.int64)
-        for uk, start, rows, _, _, acc in units:
-            if uk == k:
-                sup[start : start + rows] = acc.cpu().numpy()[:rows]
-        counts[k] = sup
+    counts = {k: np.zeros(cands.shape[0], dtype=np.int64) for k, cands in per_level.items()}
+    for k, start, rows, _, _, acc in units:
+        counts[k][start : start + rows] = _reduced(acc, cfg, mesh)[:rows]
     if obs is not None:
         obs.add_phase("host_sync", t_sync0, time.perf_counter())
     return counts
@@ -477,6 +522,7 @@ def mine_son_streamed(
     cfg: ap.AprioriConfig = ap.AprioriConfig(),
     *,
     device="cuda",
+    mesh=None,
     chunk_rows: int = 8192,
     prefetch: int = 2,
     fault: FaultConfig | None = None,
@@ -502,16 +548,25 @@ def mine_son_streamed(
     (:func:`count_union_streamed`).  ``collect_union=True`` additionally
     attaches the full pre-prune union with its exact counts as
     ``result.union_counts`` (``k -> (cands, counts)``).
+
+    On a ``mesh`` phase 1 deals the shards over the ranks; with ``fault``
+    every rank runs the whole executor (as the JAX package's mesh does), so
+    every rank holds the same report.
     """
-    dev = resolve_device(device)
+    dev = mesh_device(device, mesh)
     ap._check_cfg(cfg)
     n = store.num_transactions
     min_count = max(1, math.ceil(cfg.min_support * n))
-    chunk_rows = _check_chunk_rows(chunk_rows)
+    chunk_rows = _effective_chunk_rows(chunk_rows, cfg, mesh)
 
     # ---- phase 1: local mining per on-disk shard, union of local winners --
     report = None
-    if fault is None:
+    if fault is None and mesh is not None:
+        union = son_mod.union_over_mesh(
+            lambda p: son_mod.local_winners(store.partition_dense(p), cfg, dev),
+            store.num_partitions, mesh,
+        )
+    elif fault is None:
         union = son_mod.union_local_winners(
             (store.partition_dense(p) for p in range(store.num_partitions)), cfg, dev
         )
@@ -526,7 +581,8 @@ def mine_son_streamed(
     # ---- phase 2: ONE streamed exact count of the whole union ----
     per_level = son_mod.winners_to_arrays(union)
     counts = count_union_streamed(
-        store, per_level, cfg, device=dev, chunk_rows=chunk_rows, prefetch=prefetch, obs=obs
+        store, per_level, cfg, device=dev, mesh=mesh, chunk_rows=chunk_rows, prefetch=prefetch,
+        obs=obs,
     )
     levels = {}
     for k, cands in per_level.items():

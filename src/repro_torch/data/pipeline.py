@@ -14,6 +14,11 @@ while counting is queued.  A buffer is refilled only after its last copy's
 event has completed, and :meth:`ShardedBatchIterator.close` waits for every
 copy in flight before it lets go of the buffers.  On the CPU the chunks are
 plain tensors that own their bytes.
+
+On a mesh (``launch.mesh``) each rank keeps only its row block of every
+chunk (split over the data axes, as ``PartitionSpec(data_axes, None)``
+splits it) and copies only that through its ring: the paper's block
+locality, each map task reading its own split.
 """
 
 from __future__ import annotations
@@ -38,7 +43,9 @@ class _Slot:
 
 class ShardedBatchIterator:
     """Wraps a generator of host arrays; yields each as a tensor on
-    ``device``, prefetching ``prefetch`` of them on a worker thread.
+    ``device``, prefetching ``prefetch`` of them on a worker thread.  With a
+    ``mesh``, each array's rows must split evenly over ``data_axes`` and only
+    this rank's block of them is yielded.
 
     Chunks come out in the generator's order.  A generator (or placement)
     error reaches the consumer as that error, never as a short stream.
@@ -48,9 +55,10 @@ class ShardedBatchIterator:
     Context-managed; exhausting the iterator also joins the worker.
     """
 
-    def __init__(self, gen, device="cpu", prefetch: int = 2):
+    def __init__(self, gen, device, *, mesh=None, data_axes=("data",), prefetch: int = 2):
         if prefetch < 1:
             raise ValueError("prefetch must be >= 1")
+        self._block = mesh.shard(tuple(data_axes)) if mesh is not None else (0, 1)
         dev = torch.device(device)
         self._cuda = dev.type == "cuda"
         if self._cuda and dev.index is None:
@@ -69,6 +77,13 @@ class ShardedBatchIterator:
         self._thread.start()
 
     def _place(self, batch):
+        index, count = self._block
+        if count > 1:
+            if batch.shape[0] % count:
+                raise ValueError(f"a chunk of {batch.shape[0]} rows does not split over "
+                                 f"{count} data shards")
+            rows = batch.shape[0] // count
+            batch = batch[index * rows : (index + 1) * rows]
         if not self._cuda:
             # own the bytes: the store may hand out a read-only mmap view
             return torch.from_numpy(np.array(batch, copy=True))

@@ -39,6 +39,14 @@ manifest, the npz arrays and :data:`_CONFIG_FIELDS` are the same, so a
 checkpoint written by either package's ``mine_streamed`` resumes in the
 other.  The port's streamed miner hands :meth:`MiningCheckpoint.save` its device
 accumulator as ``acc.cpu().numpy()``.
+
+On a mesh (:meth:`MiningCheckpoint.on_mesh`) one rank writes: every rank
+calls ``save`` at the same point of the mine, rank 0 writes and commits the
+snapshot, and every rank waits at a barrier until it is committed; every
+rank reads on resume.  The miner reduces its accumulator over the mesh
+before each save, so a snapshot holds whole counts in the single-device
+format, and a checkpoint written on a mesh resumes without one (or in the
+JAX package) and the reverse.
 """
 
 from __future__ import annotations
@@ -134,6 +142,17 @@ class MiningCheckpoint:
         self.keep = keep
         self._thread: threading.Thread | None = None
         self._seq = self._max_seq(committed_only=False)
+        self._mesh = None
+
+    def on_mesh(self, mesh) -> "MiningCheckpoint":
+        """Share this manager among the ranks of ``mesh`` (None: this
+        process alone): rank 0 writes, every rank waits for each save and
+        clear to be committed.  Returns the manager."""
+        self._mesh = mesh
+        return self
+
+    def _writes(self) -> bool:
+        return self._mesh is None or self._mesh.rank == 0
 
     # -------------------------------------------------------------- write --
     def save(self, state: MiningState, store_fp: dict, mine_fp: dict) -> int:
@@ -142,11 +161,15 @@ class MiningCheckpoint:
         Host-side array snapshots are taken synchronously (the caller may
         mutate its buffers right after); serialization + fsync-order commit
         happen on a background thread, double-buffered — at most one write
-        in flight, :meth:`save` joins the previous one first.
+        in flight, :meth:`save` joins the previous one first.  On a mesh the
+        snapshot is committed on return, on every rank.
         """
         self.wait()
         self._seq += 1
         seq = self._seq
+        if not self._writes():
+            self._mesh.barrier()
+            return seq
         arrays = {}
         for k, (sets, sup) in state.levels.items():
             arrays[f"sets_{k}"] = np.array(sets, dtype=np.int32, copy=True)
@@ -172,6 +195,9 @@ class MiningCheckpoint:
 
         self._thread = threading.Thread(target=work, daemon=True)
         self._thread.start()
+        if self._mesh is not None:
+            self.wait()
+            self._mesh.barrier()
         return seq
 
     def wait(self) -> None:
@@ -267,7 +293,9 @@ class MiningCheckpoint:
     def clear(self) -> None:
         """Drop every snapshot (a completed mine has no use for them)."""
         self.wait()
-        if os.path.isdir(self.path):
+        if self._writes() and os.path.isdir(self.path):
             for d in os.listdir(self.path):
                 if d.startswith(CKPT_PREFIX):
                     shutil.rmtree(os.path.join(self.path, d), ignore_errors=True)
+        if self._mesh is not None:
+            self._mesh.barrier()

@@ -25,12 +25,17 @@
   # live per-level progress, job counters and a perfetto-loadable trace:
   PYTHONPATH=src python -m repro_torch.launch.mine ... --store DIR \
       --progress --trace-out mine-trace.json --metrics-out mine-metrics.json
+  # on a 2 x 2 data x model mesh of 4 local ranks (gloo), as the JAX CLI's
+  # --host-devices 4 --mesh 2x2; or one rank a process under torchrun:
+  PYTHONPATH=src python -m repro_torch.launch.mine ... --host-devices 4 --mesh 2x2 --device cpu
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.mine ... --mesh 2x2
 
 Level-wise, SON and the paper's all-subsets map, over dense or packed
 transactions, in memory or (``--store``) streamed from an on-disk store
 that either package may have written.  The last line is the same JSON object the
 JAX package's mine CLI prints (``seconds``, ``total_frequent``,
-``levels``), so the two can be diffed.
+``levels``), so the two can be diffed.  On a mesh every rank mines, rank 0
+alone prints and writes files, and the last line is the same.
 """
 
 from __future__ import annotations
@@ -57,7 +62,15 @@ def main(argv=None):
                     help="device transaction store: dense {0,1} (K3) or packed uint32 bitsets (K1)")
     ap.add_argument("--algo", default="levelwise", choices=["levelwise", "son", "naive_paper"])
     ap.add_argument("--partitions", type=int, default=8, help="SON phase-1 partitions")
-    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (a mesh puts local rank r on card r %% cards), cuda:N, or cpu")
+    ap.add_argument("--mesh", default="", metavar="DxM",
+                    help="mine on a data x model mesh of D*M ranks: spawned here with "
+                         "--host-devices D*M, else one rank a process under torchrun")
+    ap.add_argument("--host-devices", type=int, default=0, metavar="N",
+                    help="with --mesh: spawn the N = D*M ranks on this host")
+    ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"],
+                    help="the mesh's collective backend (nccl: one card a rank)")
     ap.add_argument("--rules", action="store_true", help="extract association rules")
     ap.add_argument("--min-confidence", type=float, default=0.6)
     ap.add_argument("--rulebook", default="", metavar="PATH",
@@ -116,25 +129,72 @@ def main(argv=None):
     if (args.progress or args.trace_out or args.metrics_out) and not args.store:
         ap.error("--progress/--trace-out/--metrics-out instrument the streamed "
                  "driver: add --store DIR")
+    shape = None
+    if args.mesh:
+        try:
+            shape = tuple(int(x) for x in args.mesh.split("x"))
+        except ValueError:
+            shape = ()
+        if len(shape) != 2 or min(shape) < 1:
+            ap.error(f"--mesh takes DxM, got {args.mesh!r}")
+        if args.host_devices and args.host_devices != shape[0] * shape[1]:
+            ap.error(f"--host-devices {args.host_devices} cannot hold a {args.mesh} mesh")
 
+    if shape is None:
+        return run(args, None)
+    from repro_torch.launch import mesh as mesh_mod
+
+    if args.host_devices:
+        mesh_mod.spawn(_rank, shape, MESH_AXES, device=args.device, backend=args.backend,
+                       timeout_s=RANK_TIMEOUT_S, args=(args,))
+        return None
+    mesh = mesh_mod.make_mesh(shape, MESH_AXES, device=args.device, backend=args.backend,
+                              timeout_s=RANK_TIMEOUT_S)
+    try:
+        return _rank(mesh, args)
+    finally:
+        mesh_mod.close_mesh()
+
+
+MESH_AXES = ("data", "model")
+RANK_TIMEOUT_S = 3600.0
+
+
+def _rank(mesh, args):
+    """One rank of a mesh mine: only rank 0 prints and writes files."""
+    if mesh.rank != 0:
+        with open(os.devnull, "w") as quiet:
+            sys.stdout = sys.stderr = quiet
+            try:
+                return run(args, mesh)
+            finally:
+                sys.stdout, sys.stderr = sys.__stdout__, sys.__stderr__
+    return run(args, mesh)
+
+
+def run(args, mesh):
+    """The mine the parsed ``args`` ask for, on ``mesh`` (or one device)."""
     from repro_torch.core.apriori import AprioriConfig, mine
     from repro_torch.core.rules import extract_rules
     from repro_torch.core.son import mine_son
     from repro_torch.data.synthetic import QuestConfig, gen_transactions
     from repro_torch.device import resolve_device
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    writer = mesh is None or mesh.rank == 0
     qcfg = QuestConfig(num_transactions=args.transactions, num_items=args.items,
                        avg_len=args.avg_len, seed=args.seed)
     db = store = None
     if args.store:
         from repro_torch.data.store import MANIFEST_NAME, ingest_quest, open_store
 
-        if args.ingest or not os.path.exists(os.path.join(args.store, MANIFEST_NAME)):
+        if writer and (args.ingest or not os.path.exists(os.path.join(args.store, MANIFEST_NAME))):
             print(f"[mine] ingesting {args.transactions} x {args.items} (chunked) -> {args.store} ...")
             store = ingest_quest(qcfg, args.store, shard_rows=args.shard_rows,
                                  chunk_rows=args.stream_chunk_rows)
-        else:
+        if mesh is not None:
+            mesh.barrier()   # rank 0's ingest is on disk
+        if store is None:
             store = open_store(args.store)
         print(f"[mine] store: n={store.num_transactions} items={store.num_items} "
               f"shards={store.num_partitions}")
@@ -142,7 +202,8 @@ def main(argv=None):
         print(f"[mine] generating {args.transactions} transactions x {args.items} items ...")
         db = gen_transactions(qcfg)
     cfg = AprioriConfig(min_support=args.min_support, max_k=args.max_k, count_impl=args.impl,
-                        representation=args.representation, use_naive_paper_map=(args.algo == "naive_paper"))
+                        representation=args.representation, use_naive_paper_map=(args.algo == "naive_paper"),
+                        model_axis="model" if mesh is not None else None)
 
     obs = tracer = None
     if args.progress or args.trace_out or args.metrics_out:
@@ -164,31 +225,32 @@ def main(argv=None):
             fault = FaultConfig(max_retries=args.max_partition_retries)
         if args.delta:
             res, rep = inc.mine_delta(store, cfg, device, chunk_rows=args.stream_chunk_rows,
-                                      fault=fault, checkpoint=True, resume=args.resume, obs=obs)
+                                      fault=fault, checkpoint=True, resume=args.resume, obs=obs,
+                                      mesh=mesh)
             print(f"[mine] delta report: {json.dumps(dataclasses.asdict(rep))}")
         elif args.count_cache:
             res, cache = inc.build_count_cache(store, cfg, device, chunk_rows=args.stream_chunk_rows,
-                                               fault=fault, obs=obs)
+                                               fault=fault, obs=obs, mesh=mesh)
             print(f"[mine] count cache seq={cache.seq} covering n={cache.n} "
                   f"({cache.candidate_total()} cached candidates over levels "
                   f"{sorted(cache.levels)}) -> {store.path}")
         elif args.algo == "son":
-            res = mine_son_streamed(store, cfg, device=device, chunk_rows=args.stream_chunk_rows,
-                                    fault=fault, obs=obs)
+            res = mine_son_streamed(store, cfg, device=device, mesh=mesh,
+                                    chunk_rows=args.stream_chunk_rows, fault=fault, obs=obs)
             if res.fault_report is not None:
                 print(f"[mine] SON fault report: {json.dumps(res.fault_report.to_json())}")
         else:
             use_ckpt = bool(args.checkpoint_every) or args.resume
             if args.resume:
                 print(f"[mine] resuming from {store.checkpoint_path} (if a committed checkpoint exists)")
-            res = mine_streamed(store, cfg, device=device, chunk_rows=args.stream_chunk_rows,
+            res = mine_streamed(store, cfg, device=device, mesh=mesh, chunk_rows=args.stream_chunk_rows,
                                 checkpoint=True if use_ckpt else None,
                                 checkpoint_every_chunks=args.checkpoint_every, resume=args.resume,
                                 obs=obs)
     elif args.algo == "son":
-        res = mine_son(db, cfg, device=device, num_partitions=args.partitions)
+        res = mine_son(db, cfg, device=device, mesh=mesh, num_partitions=args.partitions)
     else:
-        res = mine(db, cfg, device=device)
+        res = mine(db, cfg, device=device, mesh=mesh)
     dt = time.time() - t0
 
     print(f"[mine] {dt:.2f}s on {device}; min_count={res.min_count}")
@@ -204,7 +266,7 @@ def main(argv=None):
         for r in rules:
             print(f"  {r.antecedent} -> {r.consequent}  conf={r.confidence:.3f} "
                   f"supp={r.support:.4f} lift={r.lift:.2f}")
-    if args.rulebook:
+    if args.rulebook and writer:
         from repro_torch.serving.rulebook import compile_rulebook
 
         rb = compile_rulebook(
@@ -217,11 +279,11 @@ def main(argv=None):
 
     if obs is not None:
         obs.finish()
-        if args.trace_out:
+        if args.trace_out and writer:
             tracer.save_chrome(args.trace_out)
             print(f"[obs] wrote {len(tracer.spans())} spans -> {args.trace_out} "
                   "(load in ui.perfetto.dev)", file=sys.stderr)
-        if args.metrics_out:
+        if args.metrics_out and writer:
             with open(args.metrics_out, "w") as f:
                 json.dump({"seconds": dt, "counters": obs.counters()}, f, indent=2)
             print(f"[obs] wrote job counters -> {args.metrics_out}", file=sys.stderr)

@@ -8,6 +8,16 @@ first unless ``exclude_basket=False``.  Ties go to the lowest item id, as
 in the JAX package (a stable descending sort; ``torch.topk`` does not
 promise that order).
 
+On a mesh (``launch.mesh``) the match step is the same Map/Reduce shape as
+mining, flipped: baskets split by rows over the data axes (the query "HDFS
+blocks") while the rulebook splits by rows over ``rule_axis``; each rank
+runs K2 on its rule block and its basket block, an all-reduce over the rule
+axis sums the blocks' partial (B, I) scores (``core.mapreduce``, a reduce
+over the *model* axis where mining reduces over *data*), each rank takes
+the top-k of its baskets, and every rank assembles the whole result.  The
+scores are not bit for bit the single device's: K2 sums each rule block in
+ascending rule order, and the all-reduce adds the blocks in the backend's.
+
 ``recommend_python`` is the per-basket pure-Python engine — the oracle for
 tests and the baseline for the batched engine.
 """
@@ -20,8 +30,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import itemsets as enc
-from repro_torch.device import resolve_device
+from repro_torch.core.mapreduce import MapReduceJob, gather_rows, mapreduce, shard_rows
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.mesh import mesh_device
 from repro_torch.kernels import ref as kref
 from repro_torch.serving.rulebook import Rulebook, place_rulebook
 
@@ -50,15 +61,19 @@ def pack_baskets(baskets, num_items: int) -> np.ndarray:
     return enc.pack_bits(enc.dense_from_lists(list(baskets), num_items))
 
 
-def make_match_step(*, impl: str = "auto"):
+def make_match_step(*, impl: str = "auto", mesh=None, rule_axis: str = "model"):
     """The batched match step
     ``fn(b_packed (B, W), ante, lens, cons, scores) -> (B, 32·W) float32``
-    on the operands' device (``kernels.ops.rule_match``)."""
+    on the operands' device (``kernels.ops.rule_match``).  On a mesh the
+    operands are this rank's basket and rule blocks, and the step sums the
+    rule blocks' scores over ``rule_axis``."""
 
     def match_step(b, a, ln, c, s):
         return kops.rule_match(b, a, ln, c, s, impl=impl)
 
-    return match_step
+    if mesh is None:
+        return match_step
+    return mapreduce(MapReduceJob(map_fn=match_step, reduce_axes=(rule_axis,)), mesh)
 
 
 def _to_device(blk: np.ndarray, device) -> torch.Tensor:
@@ -94,6 +109,9 @@ def recommend(
     impl: str = "auto",
     exclude_basket: bool = True,
     device="cuda",
+    mesh=None,
+    data_axes: tuple = ("data",),
+    rule_axis: str = "model",
     match_step=None,
 ) -> RecommendResult:
     """Batched end-to-end query loop: pack -> match -> mask -> top-k.
@@ -103,8 +121,12 @@ def recommend(
     inert), so every match runs at one shape.  A host rulebook is placed on
     ``device`` once per call; pass a placed one (``place_rulebook``) to
     reuse it across calls.
+
+    On a ``mesh`` (every rank calls with the same baskets) ``batch_size`` is
+    rounded up to the data-shard count, the rulebook is (or was) placed on
+    the mesh over ``rule_axis``, and every rank returns the whole result.
     """
-    dev = resolve_device(device)
+    dev = mesh_device(device, mesh)
     w = enc.packed_words(rb.num_items)
     b_np = np.asarray(baskets) if not isinstance(baskets, (list, tuple)) else None
     if b_np is not None and b_np.dtype == np.uint32 and b_np.ndim == 2 and b_np.shape[1] == w:
@@ -114,12 +136,23 @@ def recommend(
     n = b_packed.shape[0]
     top_k = min(top_k, rb.num_items)
 
+    if mesh is not None:
+        data_axes = tuple(data_axes)
+        if rule_axis in data_axes or set(data_axes + (rule_axis,)) - set(mesh.axes):
+            raise ValueError(f"data_axes {data_axes} and rule_axis {rule_axis!r} must be distinct "
+                             f"axes of the mesh {tuple(mesh.axes)}")
+        shards = mesh.shard(data_axes)[1]
+        batch_size = -(-batch_size // shards) * shards
     if rb.device is None:
         # commit the columns to the device ONCE — not re-uploaded per batch
-        rb = place_rulebook(rb, dev)
+        rb = place_rulebook(rb, dev, mesh=mesh, rule_axis=rule_axis)
     elif rb.device.type != dev.type:
         raise ValueError(f"rulebook is placed on {rb.device} but device={dev}")
-    step = match_step or make_match_step(impl=impl)
+    placed_on = (rb.shard.mesh, rb.shard.rule_axis) if rb.shard is not None else (None, rule_axis)
+    if placed_on != (mesh, rule_axis):
+        raise ValueError("the rulebook was placed for another mesh or rule axis than this call's; "
+                         "place it with place_rulebook(rb, mesh=mesh, rule_axis=rule_axis)")
+    step = match_step or make_match_step(impl=impl, mesh=mesh, rule_axis=rule_axis)
 
     b_words = np.ascontiguousarray(b_packed, dtype=np.uint32).view(np.int32)
     items_out = np.zeros((n, top_k), np.int32)
@@ -129,12 +162,16 @@ def recommend(
         m = blk.shape[0]
         if m < batch_size:
             blk = np.pad(blk, ((0, batch_size - m), (0, 0)))
+        if mesh is not None:
+            blk = shard_rows(blk, mesh, data_axes)
         blk_dev = _to_device(blk, rb.device)
         item_scores = step(blk_dev, rb.ante_packed, rb.ante_len, rb.cons_packed, rb.scores)
         idx, vals = _topk_items(
             item_scores, blk_dev,
             top_k=top_k, exclude_basket=exclude_basket, num_items=rb.num_items,
         )
+        if mesh is not None:   # the baskets' blocks, whole on every rank
+            idx, vals = gather_rows(idx, mesh, data_axes), gather_rows(vals, mesh, data_axes)
         items_out[start : start + m], scores_out[start : start + m] = _to_host(idx, vals, m)
     return RecommendResult(items=items_out, scores=scores_out)
 

@@ -13,7 +13,9 @@ optionally truncated to ``max_rules``, and padded to ``pad_multiple`` rows
 with the standard inert padding (zero words, ``len = -1``, score 0).
 
 A host rulebook holds numpy arrays; ``place_rulebook`` returns one whose
-columns are tensors on a device (words as int32 views).  ``save``/``load``
+columns are tensors on a device (words as int32 views).  Placed on a mesh,
+a rulebook's rows are padded (inertly) to the rule-shard count and each
+rank keeps only its block of them (:class:`RuleShard`).  ``save``/``load``
 write and read one ``.npz`` in the same format as the JAX package's
 rulebook, so an artifact moves between the two packages in both directions.
 """
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import rules as rules_mod
-from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import mesh_device
 
 SCORE_KINDS = ("confidence", "lift")
 
@@ -42,6 +44,18 @@ def _host(x, dtype) -> np.ndarray:
     return x.astype(dtype, copy=False)
 
 
+@dataclasses.dataclass(frozen=True)
+class RuleShard:
+    """A rulebook placed on a mesh: this rank holds row block
+    ``mesh.shard(rule_axis)`` of ``num_rows`` padded rows, which hold
+    ``num_rules`` real rules in all."""
+
+    mesh: object
+    rule_axis: str
+    num_rows: int
+    num_rules: int
+
+
 @dataclasses.dataclass
 class Rulebook:
     ante_packed: np.ndarray | torch.Tensor   # (R, W) uint32 (int32 view when placed)
@@ -51,15 +65,20 @@ class Rulebook:
     num_items: int
     score_kind: str = "confidence"
     min_confidence: float = 0.0
+    shard: RuleShard | None = None           # set when placed on a mesh
 
     @property
     def num_rules(self) -> int:
-        """Real (non-padding) rules."""
+        """Real (non-padding) rules (of the whole rulebook, on a mesh)."""
+        if self.shard is not None:
+            return self.shard.num_rules
         return int((_host(self.ante_len, np.int32) >= 0).sum())
 
     @property
     def num_rows(self) -> int:
-        """Padded row count."""
+        """Padded row count (of the whole rulebook, on a mesh)."""
+        if self.shard is not None:
+            return self.shard.num_rows
         return self.ante_packed.shape[0]
 
     @property
@@ -69,6 +88,8 @@ class Rulebook:
 
     def to_host(self) -> "Rulebook":
         """The same rulebook with numpy columns in their host dtypes."""
+        if self.shard is not None:
+            raise ValueError("a rulebook placed on a mesh holds one block of its rules on each rank")
         return Rulebook(
             _host(self.ante_packed, np.uint32), _host(self.cons_packed, np.uint32),
             _host(self.ante_len, np.int32), _host(self.scores, np.float32),
@@ -160,15 +181,31 @@ def compile_rulebook(
     return Rulebook(ante, cons, lens, sc, arr.num_items, score, min_confidence)
 
 
-def place_rulebook(rb: Rulebook, device="cuda") -> Rulebook:
+def place_rulebook(rb: Rulebook, device="cuda", *, mesh=None, rule_axis: str = "model") -> Rulebook:
     """Commit the rulebook's columns to ``device`` once: words as (R, W)
-    int32 views, lengths int32, scores float32."""
-    dev = resolve_device(device)
+    int32 views, lengths int32, scores float32.
+
+    On a ``mesh`` (on its device) the rows are padded with inert rows
+    (``len = -1``, score 0) to a multiple of the ``rule_axis`` shard count,
+    and this rank keeps its contiguous block of them — the serving twin of
+    ``apriori.place_db``.
+    """
+    dev = mesh_device(device, mesh)
     h = rb.to_host()
+    ante, cons, lens, sc = h.ante_packed.view(np.int32), h.cons_packed.view(np.int32), h.ante_len, h.scores
+    shard = None
+    if mesh is not None:
+        index, shards = mesh.shard((rule_axis,))
+        pad = (-h.num_rows) % shards
+        rows = (h.num_rows + pad) // shards
+        block = slice(index * rows, (index + 1) * rows)
+        ante = np.ascontiguousarray(np.pad(ante, ((0, pad), (0, 0)))[block])
+        cons = np.ascontiguousarray(np.pad(cons, ((0, pad), (0, 0)))[block])
+        lens = np.ascontiguousarray(np.pad(lens, (0, pad), constant_values=-1)[block])
+        sc = np.ascontiguousarray(np.pad(sc, (0, pad))[block])
+        shard = RuleShard(mesh, rule_axis, h.num_rows + pad, h.num_rules)
     return Rulebook(
-        torch.from_numpy(h.ante_packed.view(np.int32)).to(dev),
-        torch.from_numpy(h.cons_packed.view(np.int32)).to(dev),
-        torch.from_numpy(h.ante_len).to(dev),
-        torch.from_numpy(h.scores).to(dev),
-        rb.num_items, rb.score_kind, rb.min_confidence,
+        torch.from_numpy(ante).to(dev), torch.from_numpy(cons).to(dev),
+        torch.from_numpy(lens).to(dev), torch.from_numpy(sc).to(dev),
+        rb.num_items, rb.score_kind, rb.min_confidence, shard,
     )

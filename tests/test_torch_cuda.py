@@ -678,3 +678,47 @@ def test_dense_mine_delta_through_k3(cuda, tmp_path):
     full = streaming.mine_streamed(open_store(p), cfg, chunk_rows=1_000)
     assert res.as_dict() == cpu.as_dict() == full.as_dict()
     assert rep.novel_candidates == cpu_rep.novel_candidates
+
+
+# ------------------------------------------------------------------ mesh ---
+def test_two_rank_gloo_mesh_on_card_holds_kernels_to_single_device(cuda, tmp_path):
+    """Two ranks of a (2, 1) gloo mesh on one card, at the T10I4D100K shape:
+    the level-2 pass through K1 (both modes) and K3, split by rows and by
+    candidates, equals each rank's single-device count with one launch a
+    rank; a mesh recommend through K2, split by baskets and by rules, is
+    within rtol 1e-5, atol 1e-6 of the single-device one, items equal
+    except at ties."""
+    import torch_mesh_ranks as ranks
+    from repro_torch.data.synthetic import QuestConfig, gen_transactions
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import spawn
+
+    _build.build_all()   # once, before the ranks load it
+    db_path = str(tmp_path / "db.npy")
+    np.save(db_path, gen_transactions(QuestConfig(num_transactions=100_000, num_items=1_000, avg_len=10.0, seed=0)))
+    got = spawn(ranks.card_kernels, (2, 1), ("data", "model"), device="cuda:0", backend="gloo",
+                timeout_s=600.0, args=(db_path,))
+    for out in got:
+        for key, (equal, launches) in ((k, v) for k, v in out.items() if not k.startswith("k2")):
+            assert equal and launches == 1, key
+        want = out["k2-single"]
+        s = want["scores"]
+        tie = np.abs(np.diff(s, axis=1)) <= ATOL + RTOL * np.abs(s[:, 1:])
+        close = np.zeros_like(s, dtype=bool)
+        close[:, 1:] |= tie
+        close[:, :-1] |= tie
+        for name in ("k2-baskets", "k2-rules"):
+            assert out[name]["launches"] == 1, name
+            np.testing.assert_allclose(out[name]["scores"], s, rtol=RTOL, atol=ATOL)
+            np.testing.assert_array_equal(out[name]["items"][~close], want["items"][~close])
+
+
+def test_nccl_with_two_ranks_on_one_card_raises(cuda):
+    from repro_torch.launch.mesh import rank_device
+
+    with pytest.raises(RuntimeError, match="nccl needs one card per rank"):
+        rank_device("cuda:0", "nccl", 0, 2)
+    n = torch.cuda.device_count()
+    with pytest.raises(RuntimeError, match="nccl needs one card per rank"):
+        rank_device("cuda", "nccl", 0, n + 1)
+    assert rank_device("cuda", "gloo", n, n + 1) == torch.device("cuda", 0)
