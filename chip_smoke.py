@@ -66,6 +66,15 @@ each with its own CUDA context, every rank's result checked:
 * ``[mesh-nccl]``: ``[mesh]`` over NCCL, one rank a card, only where the
   machine has two cards or more (a line says so otherwise).
 
+Module 6 adds ``[roofline]`` (first: the part ``launch.roofline.detect_chip``
+reads off the card, whose data-sheet rates every bound below is computed
+from), ``[static-cost]`` (after ``[stream-resume]``: the mine CLI with
+``--store --metrics-out`` at 8,192-row chunks; its ``static_cost`` block has
+the JAX CLI's keys and the flops 2·8,192·1,000·Kp), ``[dryrun]`` (the three
+production variants of ``launch.mine_dryrun`` on meta tensors) and
+``[examples]`` (the nine ``examples/torch`` scripts as subprocesses on the
+card at their defaults, each exiting 0, with its wall and its launches).
+
 Any failed check raises, and the script exits non-zero.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
 lists the kernels with their launches, errors and times.
@@ -73,6 +82,7 @@ lists the kernels with their launches, errors and times.
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import os
@@ -88,18 +98,10 @@ import torch
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 
-# Published H100 SXM rates (NVIDIA data sheet, 700 W): HBM bandwidth and the
-# fp32 rate outside the tensor cores.  The int32 rate is the same data
-# sheet's SM count and boost clock with 64 int32 lanes per SM (half the 128
-# fp32 lanes behind the 67 TFLOP/s figure): 132 x 64 x 1.98 GHz.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-INT32_OP_PER_S = 132 * 64 * 1.98e9
-# Dense tensor-core rates of the same data sheet (no sparsity): bf16 with
-# fp32 accumulation, and int8.
-BF16_TC_FLOP_PER_S = 989e12
-INT8_TC_OP_PER_S = 1979e12
-TC_RATES = {"bf16": BF16_TC_FLOP_PER_S, "int8": INT8_TC_OP_PER_S}
+# The card's rates: ``repro_torch.launch.roofline``'s data-sheet part for the
+# card ``detect_chip`` reads (HBM, fp32 outside the tensor cores, int32 lanes,
+# the bf16 / int8 tensor-core rates), set by main() before any phase runs.
+CHIP = None
 
 RTOL, ATOL = 1e-5, 1e-6
 # The row-layout K1 that the item bitmaps replaced (one candidate per
@@ -147,7 +149,7 @@ def alternate(plain, kernel, kernel_reps: int, plain_reps: int = 1):
 def bound(byte_count: float, ops_ms: float):
     """(bound_ms, bound_by): the larger of the bytes' time at the HBM rate
     and the operations' time."""
-    bytes_ms = byte_count / HBM_BYTES_PER_S * 1e3
+    bytes_ms = byte_count / CHIP.hbm_bytes_per_s * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -223,7 +225,7 @@ def k1_sweep(ops, dev):
     plain row-layout version and the plain bitmap count, then 4,100 rows
     through 5 row slabs of a capped scratch; both modes."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels import support_count_packed as k1
+    k1 = importlib.import_module("repro_torch.kernels.support_count_packed")
 
     shapes = [(8, 16, 4), (100, 64, 33), (256, 128, 128), (300, 130, 257), (512, 512, 300),
               (200, 1100, 70)]
@@ -298,16 +300,16 @@ def k1_main_shape(ops, t_dev, cands, num_items, dev, card):
         items = int((ref.popcount32(c).sum(1) * live).sum().item())
         bitmap_ops = items * nb + 4 * int(live.sum().item()) * nb
         byte_count = 4 * (n * w + kp * w + kp + kp)
-        bound_ms, bound_by = bound(byte_count, bitmap_ops / INT32_OP_PER_S * 1e3)
+        bound_ms, bound_by = bound(byte_count, bitmap_ops / CHIP.int32_op_per_s * 1e3)
         out[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                          max_abs_err=float((got - want).abs().max().item()))
         lo, hi = ROW_LAYOUT_K1_MS[mode]
         log(f"[k1] {mode} N={n} Kp={kp} W={w}: exact; kernel {ms:.3f} ms (the row-layout design {lo}-{hi} ms in "
             f"PERF.md: {lo / ms:.1f}x), plain {plain_ms:.1f} ms; bitmap bound {bound_ms:.4f} ms ({bound_by}: "
             f"{items * nb:.3e} item-word ANDs and {int(live.sum().item()) * nb:.3e} popc, 4 op each, over {nb} "
-            f"bitmap words at {INT32_OP_PER_S:.3e} int32 op/s, {byte_count:.3e} B); word-test bound "
-            f"{needed_tests / INT32_OP_PER_S * 1e3:.4f} ms ({needed_tests:.3e} word tests on candidate words "
-            f"that hold a bit); dense-count bound {dense_tests / INT32_OP_PER_S * 1e3:.3f} ms "
+            f"bitmap words at {CHIP.int32_op_per_s:.3e} int32 op/s, {byte_count:.3e} B); word-test bound "
+            f"{needed_tests / CHIP.int32_op_per_s * 1e3:.4f} ms ({needed_tests:.3e} word tests on candidate words "
+            f"that hold a bit); dense-count bound {dense_tests / CHIP.int32_op_per_s * 1e3:.3f} ms "
             f"({dense_tests:.3e} = N*Kp*W word tests) [{card}]")
     return out, got   # the counts, the same in both modes
 
@@ -424,8 +426,8 @@ def k2_main_shape(ops, rb, b_words, dev, card):
         f"{int(per_basket.max().item())}; bound {bound_ms:.4f} ms ({bound_by}: "
         f"{byte_count:.3e} B, {needed_tests:.3e} antecedent word tests, {needed_flops:.3e} fan-out "
         f"flop of matched rules = {needed_flops / dense_flops:.2e} of the dense count); dense-count bound "
-        f"{dense_flops / FP32_FLOP_PER_S * 1e3:.4f} ms ({dense_flops:.3e} = 2*B*R*32W fp32 flop at "
-        f"{FP32_FLOP_PER_S:.2e}/s) [{card}]")
+        f"{dense_flops / CHIP.fp32_flop_per_s * 1e3:.4f} ms ({dense_flops:.3e} = 2*B*R*32W fp32 flop at "
+        f"{CHIP.fp32_flop_per_s:.2e}/s) [{card}]")
 
     # the worst case for a sparse fan-out: every basket holds every item, so
     # every real rule matches every basket
@@ -464,7 +466,7 @@ def k3_exact(ops, dev, t, c, ln, operand_dtype, what):
     """K3 on (t, c, lengths) with the item axis padded with zero columns to
     the kernel's width, as the dense placement pads it: exactly equal to its
     plain version.  Returns the counts."""
-    from repro_torch.kernels import support_count as k3
+    k3 = importlib.import_module("repro_torch.kernels.support_count")
 
     i = t.shape[1]
     dt = k3.DTYPES[operand_dtype][1]
@@ -487,7 +489,7 @@ def k3_sweep(ops, dev):
     tile in the middle, a ragged tail), N = 20,000 (several work units per
     persistent block) and K = 70,000 (two launch windows); and an empty
     candidate (len = 0), which counts N.  Both operand dtypes."""
-    from repro_torch.kernels import support_count as k3
+    k3 = importlib.import_module("repro_torch.kernels.support_count")
 
     shapes = [(8, 16, 4), (100, 64, 33), (256, 128, 128), (300, 130, 257), (512, 512, 300),
               (200, 1100, 70), (1000, 130, 600), (1000, 1100, 600), (20000, 1000, 3000), (300, 64, 70000)]
@@ -537,7 +539,7 @@ def k3_main_shape(ops, db, cands, k1_counts, dev, card):
         op_count = 2 * n * live * num_items
         dense_ops = 2 * n * kp * ip
         byte_count = t.element_size() * (n + live) * num_items + 4 * (kp + kp)
-        bound_ms, bound_by = bound(byte_count, op_count / TC_RATES[operand_dtype] * 1e3)
+        bound_ms, bound_by = bound(byte_count, op_count / CHIP.peak(operand_dtype) * 1e3)
         out[operand_dtype] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                                   max_abs_err=float((got - want).abs().max().item()))
         if operand_dtype == "bf16":
@@ -551,8 +553,8 @@ def k3_main_shape(ops, db, cands, k1_counts, dev, card):
             f"= {ms / gemm_ms:.3f}x the bare bf16 product's time, plain {plain_ms:.1f} ms{extra}; "
             f"bound {bound_ms:.4f} ms ({bound_by}: {op_count:.3e} = "
             f"2*N*K*I operations for the {live} real candidates and {num_items} items at "
-            f"{TC_RATES[operand_dtype]:.3e}/s, {byte_count:.3e} B) = {op_count / (ms * 1e-3) / 1e12:.1f} "
-            f"T op/s achieved; dense-count bound {dense_ops / TC_RATES[operand_dtype] * 1e3:.3f} ms "
+            f"{CHIP.peak(operand_dtype):.3e}/s, {byte_count:.3e} B) = {op_count / (ms * 1e-3) / 1e12:.1f} "
+            f"T op/s achieved; dense-count bound {dense_ops / CHIP.peak(operand_dtype) * 1e3:.3f} ms "
             f"({dense_ops:.3e} = 2*N*Kp*Ip) [{card}]")
         del t, c
     return out
@@ -730,7 +732,6 @@ def recommend_breakdown(rb, baskets, card):
     more with its phases timed: each batch's H2D copy, match step (host wall,
     and K2's device time by CUDA events), top-k sort and D2H copy.  Each timed
     phase synchronises before and after, so the phases do not overlap."""
-    import importlib
 
     # the package re-exports a function named ``recommend``, which shadows the module
     rec_mod = importlib.import_module("repro_torch.serving.recommend")
@@ -1148,7 +1149,7 @@ def k2_bound(rb, b):
         matched_items += float((hit.to(torch.float32) @ cons_items).sum().item())
         per_basket.append(hit.sum(1))
     byte_count = 4 * (nb * w + 2 * r * w + 2 * r + nb * 32 * w)
-    ops_ms = max(needed_tests / INT32_OP_PER_S, 2 * matched_items / FP32_FLOP_PER_S) * 1e3
+    ops_ms = max(needed_tests / CHIP.int32_op_per_s, 2 * matched_items / CHIP.fp32_flop_per_s) * 1e3
     bound_ms, bound_by = bound(byte_count, ops_ms)
     return bound_ms, bound_by, torch.cat(per_basket).to(torch.float64), needed_tests, 2 * matched_items, byte_count
 
@@ -1628,7 +1629,6 @@ class AllReduceTimes:
     synchronised on both sides, so each is the collective alone)."""
 
     def __enter__(self):
-        import importlib
 
         self.mod = importlib.import_module("repro_torch.core.mapreduce")
         self.fn, self.times = self.mod.all_reduce, []
@@ -1972,6 +1972,125 @@ def mesh_cli_phase(card):
         f"{lines['mesh'][2]:.3f} s vs {lines['single'][2]:.3f} s [{card}]")
 
 
+# ------------------------------------------------------------- module 6 ---
+def roofline_phase(roofline, dev, card):
+    """``[roofline]``: the part ``detect_chip`` reads off the card, beside
+    ``nvidia-smi``'s name and power limit."""
+    chip = roofline.detect_chip(dev)
+    log(f"[roofline] {torch.cuda.get_device_name(dev)} -> part {chip.part} ({chip.label}, data sheet at "
+        f"{chip.power_w:.0f} W): bf16 {chip.bf16_flop_per_s:.3e} flop/s, int8 {chip.int8_op_per_s:.3e} op/s, "
+        f"fp32 {chip.fp32_flop_per_s:.3e} flop/s, int32 {chip.int32_op_per_s:.3e} op/s, HBM "
+        f"{chip.hbm_bytes_per_s:.3e} B/s, NVLink {chip.nvlink_bytes_per_s:.3e} B/s a direction [{card}]")
+    return chip
+
+
+def static_cost_phase(store, root, card):
+    """``[static-cost]``: the mine CLI with ``--store --metrics-out`` on the
+    store at 8,192-row chunks (the default dense representation, K3): the
+    ``static_cost`` block carries the JAX CLI's keys, no ``error``, and
+    the flops of one dispatch of 8,192 rows against the largest bucket."""
+    metrics = os.path.join(root, "static-metrics.json")
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "repro_torch.launch.mine", "--store", store.path,
+           "--stream-chunk-rows", str(STREAM_CHUNK_ROWS), "--min-support", "0.002", "--max-k", "4",
+           "--metrics-out", metrics]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[static-cost] the mine CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+    static = json.load(open(metrics))["static_cost"]
+    keys = {"rows_per_dispatch", "candidate_rows", "flops_per_dispatch", "hbm_bytes_per_dispatch",
+            "roofline_s_per_dispatch", "roofline_dominant", "useful_flops_per_dispatch", "useful_flops_ratio",
+            "count_dispatches", "measured_count_kernel_s", "measured_vs_roofline"}
+    if set(static) != keys:
+        raise AssertionError(f"[static-cost] the block's keys {sorted(static)} are not the JAX CLI's")
+    kp = static["candidate_rows"]
+    if static["flops_per_dispatch"] != 2 * STREAM_CHUNK_ROWS * store.num_items * kp or \
+            static["rows_per_dispatch"] != STREAM_CHUNK_ROWS:
+        raise AssertionError(f"[static-cost] {static}")
+    log(f"[static-cost] mine CLI --store --metrics-out in {wall:.1f} s: {json.dumps(static)}")
+    log(f"[static-cost] {static['count_dispatches']} dispatches of {STREAM_CHUNK_ROWS} rows x {kp} candidates: "
+        f"roofline {static['roofline_s_per_dispatch'] * 1e3:.4f} ms a dispatch ({static['roofline_dominant']}), "
+        f"measured count_kernel phase {static['measured_count_kernel_s']:.4f} s = "
+        f"{static['measured_vs_roofline']:.2f} x the roofline [{card}]")
+    return static
+
+
+def dryrun_phase():
+    """``[dryrun]``: the three production variants at the JAX defaults,
+    walked on meta tensors (no device)."""
+    from repro_torch.launch import mine_dryrun
+
+    t0 = time.perf_counter()
+    recs = [mine_dryrun.run(v) for v in mine_dryrun.VARIANTS]
+    wall = time.perf_counter() - t0
+    flops = 2.0 * 4096 * 2048 * 65536
+    if any(r["flops_per_dev"] != flops for r in recs):
+        raise AssertionError(f"[dryrun] per-rank flops {[r['flops_per_dev'] for r in recs]} != {flops:.4e}")
+    log(f"[dryrun] {wall:.2f} s, N = 2^20 x I = 2,048 x K = 2^16 on 16 x 16, one rank on the H100 SXM "
+        f"data sheet: {json.dumps(recs)}")
+    return recs
+
+
+EXAMPLES = ["quickstart", "mine_corpus", "serve_rules", "mine_out_of_core", "serve_gateway",
+            "serve_refresh", "serve_replicated", "serve_slo", "distributed_mining"]
+# run an example as ``__main__`` (so spawned ranks find its functions), then
+# print the launch counts of this process
+_RUN_EXAMPLE = ("import json, runpy, sys; path = sys.argv[1]; sys.argv = sys.argv[1:]; "
+                "runpy.run_path(path, run_name='__main__'); "
+                "from repro_torch.kernels import ops; print(json.dumps(ops.launch_counts()))")
+
+
+EXAMPLE_LANES = 4   # single-process examples run this many at a time; distributed_mining alone
+
+
+def run_example(name, env):
+    """One example as a subprocess: (argv extras, wall s, stdout lines)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(root, "examples", "torch", f"{name}.py")
+    extra = ["--kill-resume"] if name == "mine_out_of_core" else []
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _RUN_EXAMPLE, path, *extra], capture_output=True,
+                          text=True, env=env, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:])
+        raise AssertionError(f"[examples] {name} exited {proc.returncode}: {proc.stderr[-4000:]}")
+    return extra, wall, proc.stdout.strip().splitlines()
+
+
+def examples_phase(card):
+    """``[examples]``: each of the nine examples in ``examples/torch`` as a
+    subprocess on the card at its defaults (``mine_out_of_core`` with
+    ``--kill-resume``): each exits 0; its wall and the launches of its own
+    process (not of its spawned ranks or its killed child) are logged.  The
+    eight single-process examples share the card :data:`EXAMPLE_LANES` at a
+    time, so their walls include each other's host work;
+    ``distributed_mining`` (8 ranks) runs alone after them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    singles = [n for n in EXAMPLES if n != "distributed_mining"]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=EXAMPLE_LANES) as pool:
+        runs = dict(zip(singles, pool.map(lambda n: run_example(n, env), singles)))
+    singles_s = time.perf_counter() - t0
+    runs["distributed_mining"] = run_example("distributed_mining", env)
+    out = {}
+    for name in EXAMPLES:
+        extra, wall, lines = runs[name]
+        launches = json.loads(lines[-1])
+        out[name] = dict(wall_s=wall, launches=launches)
+        shown = lines[-6:-1] if name == "distributed_mining" else lines[-2:-1]
+        log(f"[examples] {name} {' '.join(extra)} exited 0 in {wall:.2f} s; launches {launches} [{card}]")
+        for line in shown:
+            log(f"[examples]   {name}: {line[:200]}")
+    log(f"[examples] the eight single-process examples, {EXAMPLE_LANES} at a time: {singles_s:.2f} s; "
+        f"distributed_mining alone: {out['distributed_mining']['wall_s']:.2f} s [{card}]")
+    return out
+
+
 def mesh_nccl_phase(streaming, ops, paths, want, passes, dev, card):
     """``[mesh-nccl]``: ``[mesh]`` with NCCL, one rank a card, where the
     machine has at least 2 cards."""
@@ -1998,6 +2117,7 @@ def main() -> int:
     from repro_torch.data.synthetic import QuestConfig, gen_transactions
     from repro_torch.kernels import _build
     from repro_torch.kernels import ops
+    from repro_torch.launch import roofline
     from repro_torch.serving.recommend import recommend, recommend_python
     from repro_torch.serving.rulebook import compile_rulebook, place_rulebook
 
@@ -2010,6 +2130,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(card)
     log(f"[device] {kind}; torch {torch.__version__} cuda {torch.version.cuda}")
+    global CHIP
+    CHIP = roofline_phase(roofline, dev, card)
 
     t0 = time.perf_counter()
     _build.build_all()
@@ -2164,6 +2286,7 @@ def main() -> int:
         k3_stream = stream_dense_phase(streaming, apriori, ops, store, dense_cfg, dense_res, dev, card)
         stream_son_phase(streaming, ops, store, dense_cfg, dense_res, phase1, union_levels, dev, card)
         stream_resume_phase(streaming, ops, store, cfg, res, dev, card)
+        static_cost_phase(store, root, card)
 
         # ---- the serving tier over the store: gateway, hot swap, delta
         # mining, refresh, router and the serve CLI; each phase sets the
@@ -2191,6 +2314,10 @@ def main() -> int:
         mesh_cli_phase(card)
         mesh_nccl_phase(streaming, ops, paths, want, mesh_passes, dev, card)
 
+    # ---- module 6: the dry run (no device) and the nine examples on the card
+    dryrun_phase()
+    examples = examples_phase(card)
+
     # ---- K2 at the main path's batch shape
     k2 = k2_main_shape(ops, rb, pack_bits(db[:1024]), dev, card)
 
@@ -2207,7 +2334,8 @@ def main() -> int:
              delta_launches=serving["delta"]["launches"], refresh_launches=serving["refresh"]["k1"],
              mesh_launches_per_rank=[o["mine"]["launches"] for o in mesh_outs],
              mesh_ms_per_rank=[o["k1"]["ms"] for o in mesh_outs],
-             mesh_shape_per_rank=[mesh_outs[0]["k1"]["rows"], mesh_outs[0]["k1"]["cands"]]),
+             mesh_shape_per_rank=[mesh_outs[0]["k1"]["rows"], mesh_outs[0]["k1"]["cands"]],
+             examples_launches={n: e["launches"]["support_count_packed"] for n, e in examples.items()}),
         dict(name="rule_match", route="cuda", source="src/repro_torch/kernels/csrc/rule_match.cu",
              replaces="src/repro/kernels/rule_match.py:86", launches=k2_launches,
              max_abs_err=k2["max_abs_err"], ms=k2["ms"], plain_ms=k2["plain_ms"],
@@ -2220,7 +2348,8 @@ def main() -> int:
              router_launches=serving["router"]["launches"],
              mesh_launches_per_rank=[o["launches"] for o in rec_outs],
              mesh_ms_per_rank=[o["ms"] for o in rec_outs],
-             mesh_shape_per_rank=[rec_outs[0]["baskets"], rec_outs[0]["rules"]]),
+             mesh_shape_per_rank=[rec_outs[0]["baskets"], rec_outs[0]["rules"]],
+             examples_launches={n: e["launches"]["rule_match"] for n, e in examples.items()}),
         dict(name="support_count", route="cuda", source="src/repro_torch/kernels/csrc/support_count.cu",
              replaces="src/repro/kernels/support_count.py:69", launches=k3_launches,
              max_abs_err=k3["bf16"]["max_abs_err"], ms=k3["bf16"]["ms"], plain_ms=k3["bf16"]["plain_ms"],
@@ -2230,7 +2359,8 @@ def main() -> int:
              stream_event_ms_per_launch=k3_stream["event_ms_per_launch"],
              mesh_launches_per_rank=[o["dense"]["launches"] for o in mesh_outs],
              mesh_ms_per_rank=[o["k3"]["ms"] for o in mesh_outs],
-             mesh_shape_per_rank=[mesh_outs[0]["k3"]["rows"], mesh_outs[0]["k3"]["cands"]]),
+             mesh_shape_per_rank=[mesh_outs[0]["k3"]["rows"], mesh_outs[0]["k3"]["cands"]],
+             examples_launches={n: e["launches"]["support_count"] for n, e in examples.items()}),
     ]
     log(f"[k1] popcount mode at the same shape: {json.dumps(k1['popcount'])} [{card}]")
     log(f"[k3] int8 operands at the same shape: {json.dumps(k3['int8'])} [{card}]")

@@ -32,6 +32,7 @@ rank every collective is skipped.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import math
 import time
 from typing import Callable
@@ -44,7 +45,7 @@ from repro_torch.core import itemsets as enc
 from repro_torch.core.mapreduce import MapReduceJob, mapreduce, pad_rows_to_shards
 from repro_torch.launch.mesh import mesh_device
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels import support_count as k3
+k3 = importlib.import_module("repro_torch.kernels.support_count")
 
 COUNT_IMPLS = ("auto", "kernel", "ref")
 REPRESENTATIONS = ("dense", "packed")

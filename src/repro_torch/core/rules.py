@@ -231,3 +231,13 @@ def extract_rule_arrays(
         cons_count=cons_count,
         num_transactions=n,
     )
+
+
+def extract_rules_vectorized(
+    result,
+    min_confidence: float = 0.5,
+    max_rules: int | None = None,
+    num_items: int | None = None,
+) -> list[Rule]:
+    """Drop-in vectorized replacement for :func:`extract_rules`."""
+    return extract_rule_arrays(result, min_confidence, num_items).to_rules(max_rules)

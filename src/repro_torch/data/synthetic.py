@@ -79,3 +79,8 @@ def gen_transactions(cfg: QuestConfig = QuestConfig()) -> np.ndarray:
     if not chunks:
         return np.zeros((0, cfg.num_items), dtype=np.int8)
     return chunks[0] if len(chunks) == 1 else np.concatenate(chunks)
+
+
+def gen_transaction_lists(cfg: QuestConfig = QuestConfig()) -> list:
+    dense = gen_transactions(cfg)
+    return [np.flatnonzero(row).tolist() for row in dense]

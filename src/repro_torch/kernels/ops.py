@@ -21,12 +21,13 @@ kernel, and nowhere else.
 
 from __future__ import annotations
 
+import importlib
 import threading
 
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels import support_count as k3
+k3 = importlib.import_module("repro_torch.kernels.support_count")
 
 IMPLS = ("auto", "kernel", "ref")
 MODES = ("and_cmp", "popcount")
@@ -101,7 +102,7 @@ def support_count_packed(t_packed, c_packed, lengths, *, impl: str = "auto", mod
         if mode == "popcount":
             return ref.support_count_packed_popcount_ref(t_packed, c_packed, lengths)
         return ref.support_count_packed_ref(t_packed, c_packed, lengths)
-    from repro_torch.kernels import support_count_packed as k1
+    k1 = importlib.import_module("repro_torch.kernels.support_count_packed")
 
     out = k1.launch(t_packed, c_packed, lengths, mode)
     _count_launch("support_count_packed")

@@ -12,6 +12,12 @@ named axes (``("data", "model")``, ``("pod", "data", "model")``):
   * ``mesh.coord(axis)`` / ``mesh.shard(axes)`` place this rank on the grid;
   * ``mesh.device`` is the device this rank computes on.
 
+The grid arithmetic (coordinates, blocks, the ranks of a group) lives in
+:class:`MeshLayout`, which :class:`Mesh` extends with process groups.  On
+its own a layout stands in for a mesh whose ranks are never started: the
+dry run costs one rank of :func:`production_mesh_shape`'s 256 on meta
+tensors (``launch.op_analysis``).
+
 Every group of every non-empty subset of the axes is created when the mesh
 is built, by every rank in the same order: ``dist.new_group`` is a
 collective call, so a group created later by some ranks only would hang.
@@ -56,44 +62,50 @@ from repro_torch.device import resolve_device
 BACKENDS = ("gloo", "nccl")
 DEFAULT_TIMEOUT_S = 120.0
 EXIT_GRACE_S = 30.0   # how long ranks that all reported may take to exit
+# how long a rank's error waits for a peer that died without a word: a peer's
+# death reaches the others as lost-connection errors before its exit code can
+# be read
+SILENT_DEATH_GRACE_S = 1.0
 
 
-class Mesh:
-    """This rank's view of a grid of ranks with named axes.
+def production_mesh_shape(*, multi_pod: bool = False) -> tuple[tuple, tuple]:
+    """``(shape, axes)`` of the dry run's production layout: 16 x 16 = 256
+    ranks ``("data", "model")``; multi-pod prepends a 2-pod axis, (2, 16, 16)
+    = 512 ranks ``("pod", "data", "model")``.  Shapes only: 256 ranks cannot
+    be spawned here, so the dry run costs one rank of a :class:`MeshLayout`."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return shape, axes
 
-    Built by :func:`make_mesh` once the default process group exists.  Rank
-    ``r`` sits at ``np.unravel_index(r, shape)``: the last axis varies
-    fastest, as in ``jax.make_mesh``.
+
+def host_mesh_shape(shape=(2, 2), axes=("data", "model")) -> tuple[tuple, tuple]:
+    """``(shape, axes)`` of a small mesh of ranks on this host, for tests and
+    examples (:func:`spawn` starts it)."""
+    return tuple(int(s) for s in shape), tuple(axes)
+
+
+class MeshLayout:
+    """One rank's place on a grid of ranks with named axes, and nothing
+    else: the arithmetic :class:`Mesh` shares, without process groups.
+
+    Rank ``r`` sits at ``np.unravel_index(r, shape)``: the last axis varies
+    fastest, as in ``jax.make_mesh``.  On its own it stands in for a mesh
+    whose ranks cannot be started (the dry run's 256): ``group`` returns the
+    tuple of the group's global ranks, no process group, and a collective on
+    it runs only under ``launch.op_analysis``, which records it.
     """
 
-    def __init__(self, shape, axes, device, *, timeout_s: float = DEFAULT_TIMEOUT_S):
+    def __init__(self, shape, axes, rank: int = 0):
         shape, axes = tuple(int(s) for s in shape), tuple(axes)
         if len(shape) != len(axes) or len(set(axes)) != len(axes) or min(shape) < 1:
             raise ValueError(f"mesh shape {shape} and axes {axes} do not match")
         self.size = math.prod(shape)
-        if dist.get_world_size() != self.size:
-            raise ValueError(f"a {shape} mesh needs {self.size} ranks, "
-                             f"the process group has {dist.get_world_size()}")
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} is not on a {shape} mesh")
         self.shape = dict(zip(axes, shape))
         self.axes = axes
-        self.rank = dist.get_rank()
-        self.device = torch.device(device)
-        self.backend = dist.get_backend()
+        self.rank = int(rank)
         self._coords = dict(zip(axes, (int(c) for c in np.unravel_index(self.rank, shape))))
-        timeout = datetime.timedelta(seconds=timeout_s)
-        grid = np.arange(self.size).reshape(shape)
-        self._groups = {}
-        for n in range(1, len(axes) + 1):
-            for sub in itertools.combinations(range(len(axes)), n):
-                rest = [i for i in range(len(axes)) if i not in sub]
-                # rows of the grid: the other axes fixed, ``sub`` varying
-                blocks = np.transpose(grid, rest + list(sub)).reshape(-1, math.prod(shape[i] for i in sub))
-                for ranks in blocks.tolist():
-                    group = dist.new_group(ranks, timeout=timeout)
-                    if self.rank in ranks:
-                        self._groups[tuple(axes[i] for i in sub)] = group
-        # objects and barriers travel over gloo whatever the tensors' backend
-        self._host_group = dist.new_group(list(range(self.size)), timeout=timeout, backend="gloo")
 
     def _key(self, axes) -> tuple:
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
@@ -103,9 +115,16 @@ class Mesh:
         return tuple(a for a in self.axes if a in axes)
 
     def group(self, axes):
-        """The process group of the ranks that share this rank's coordinates
-        on every axis outside ``axes``."""
-        return self._groups[self._key(axes)]
+        """This rank's group along ``axes``: its :meth:`group_ranks`."""
+        return self.group_ranks(axes)
+
+    def group_ranks(self, axes) -> tuple:
+        """The global ranks that share this rank's coordinates on every axis
+        outside ``axes``, in rank order."""
+        key = self._key(axes)
+        grid = np.arange(self.size).reshape(tuple(self.shape.values()))
+        index = tuple(slice(None) if a in key else self._coords[a] for a in self.axes)
+        return tuple(int(r) for r in np.sort(grid[index], axis=None))
 
     def group_size(self, axes) -> int:
         return math.prod(self.shape[a] for a in self._key(axes))
@@ -123,6 +142,46 @@ class Mesh:
             self._key(a)
             index, count = index * self.shape[a] + self._coords[a], count * self.shape[a]
         return index, count
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}({self.shape}, rank={self.rank})"
+
+
+class Mesh(MeshLayout):
+    """This rank's view of a grid of ranks with named axes, with a process
+    group for every subset of the axes.
+
+    Built by :func:`make_mesh` once the default process group exists.
+    """
+
+    def __init__(self, shape, axes, device, *, timeout_s: float = DEFAULT_TIMEOUT_S):
+        size = math.prod(int(s) for s in shape)
+        if dist.get_world_size() != size:
+            raise ValueError(f"a {tuple(shape)} mesh needs {size} ranks, "
+                             f"the process group has {dist.get_world_size()}")
+        super().__init__(shape, axes, dist.get_rank())
+        shape = tuple(self.shape.values())
+        self.device = torch.device(device)
+        self.backend = dist.get_backend()
+        timeout = datetime.timedelta(seconds=timeout_s)
+        grid = np.arange(self.size).reshape(shape)
+        self._groups = {}
+        for n in range(1, len(axes) + 1):
+            for sub in itertools.combinations(range(len(axes)), n):
+                rest = [i for i in range(len(axes)) if i not in sub]
+                # rows of the grid: the other axes fixed, ``sub`` varying
+                blocks = np.transpose(grid, rest + list(sub)).reshape(-1, math.prod(shape[i] for i in sub))
+                for ranks in blocks.tolist():
+                    group = dist.new_group(ranks, timeout=timeout)
+                    if self.rank in ranks:
+                        self._groups[tuple(self.axes[i] for i in sub)] = group
+        # objects and barriers travel over gloo whatever the tensors' backend
+        self._host_group = dist.new_group(list(range(self.size)), timeout=timeout, backend="gloo")
+
+    def group(self, axes):
+        """The process group of the ranks that share this rank's coordinates
+        on every axis outside ``axes``."""
+        return self._groups[self._key(axes)]
 
     def barrier(self) -> None:
         dist.barrier(group=self._host_group)
@@ -233,6 +292,19 @@ def _rank_main(fn, rank, world, shape, axes, device, backend, timeout_s, store_p
         close_mesh()
 
 
+def _silent_death(procs, done, reporter, grace_s: float):
+    """A rank, neither ``reporter`` nor one in ``done``, that has exited
+    with a non-zero code, watched for ``grace_s``; or None."""
+    deadline = time.monotonic() + grace_s
+    while True:
+        for r, p in enumerate(procs):
+            if r not in done and r != reporter and p.exitcode not in (None, 0):
+                return r
+        if time.monotonic() >= deadline:
+            return None
+        time.sleep(0.01)
+
+
 def spawn(fn, shape, axes, *, device="cuda", backend: str, timeout_s: float = DEFAULT_TIMEOUT_S,
           args: tuple = ()) -> list:
     """Run ``fn(mesh, *args)`` on ``prod(shape)`` new local ranks and return
@@ -270,10 +342,10 @@ def spawn(fn, shape, axes, *, device="cuda", backend: str, timeout_s: float = DE
                     rank, ok, payload = None, True, None
                 # a rank that died without a word is the cause of its
                 # peers' lost-connection errors
-                for r, p in enumerate(procs):
-                    if r not in results and r != rank and p.exitcode not in (None, 0):
-                        raise RankFailed(f"rank {r} exited with code {p.exitcode}") from (
-                            None if ok else payload[0])
+                dead = _silent_death(procs, results, rank, 0.0 if ok else SILENT_DEATH_GRACE_S)
+                if dead is not None:
+                    raise RankFailed(f"rank {dead} exited with code {procs[dead].exitcode}") from (
+                        None if ok else payload[0])
                 if not ok:
                     err, tb = payload
                     raise err from RankFailed(f"rank {rank} raised:\n{tb}")

@@ -22,7 +22,8 @@
   # the rows appended since it (dict-identical to a full re-mine):
   PYTHONPATH=src python -m repro_torch.launch.mine ... --store DIR --count-cache
   PYTHONPATH=src python -m repro_torch.launch.mine ... --store DIR --delta
-  # live per-level progress, job counters and a perfetto-loadable trace:
+  # live per-level progress, job counters (with the count step's static
+  # roofline, ``static_cost``) and a perfetto-loadable trace:
   PYTHONPATH=src python -m repro_torch.launch.mine ... --store DIR \
       --progress --trace-out mine-trace.json --metrics-out mine-metrics.json
   # on a 2 x 2 data x model mesh of 4 local ranks (gloo), as the JAX CLI's
@@ -46,6 +47,53 @@ import json
 import os
 import sys
 import time
+
+
+def static_count_cost(cfg, mesh, rows: int, num_items: int, k_cands: int, *, chip=None) -> dict:
+    """Static roofline of ONE streamed count dispatch at the mined shapes.
+
+    Walks the plain dense count step (a shape-faithful proxy for whatever
+    representation and kernel actually ran, as the JAX CLI lowers its jnp
+    step) on meta tensors (``launch.op_analysis``): (rows x num_items)
+    transactions against the LARGEST candidate bucket the mine dispatched.
+    On a mesh it walks this rank's blocks, (rows / data shards) x (k_cands /
+    model shards), through the mesh engine, whose collective it counts.
+    The roofline is ``chip``'s (``launch.roofline``; the SXM part by
+    default), the operations at the rate of ``cfg.operand_dtype``.  Paired
+    with the measured ``count_kernel`` phase seconds this turns padding and
+    dispatch overhead into a reported ratio.
+    """
+    import torch
+
+    from repro_torch.core.apriori import make_count_step
+    from repro_torch.launch import op_analysis, roofline
+
+    # the plain route by name: the walk never runs the card's kernels
+    proxy = dataclasses.replace(cfg, count_impl="ref", representation="dense")
+    step = make_count_step(proxy, mesh)
+    data = mesh.shard(tuple(cfg.data_axes))[1] if mesh is not None else 1
+    model = mesh.shape[cfg.model_axis] if mesh is not None and cfg.model_axis else 1
+    kb = k_cands // model
+    costs = op_analysis.analyze(
+        step, op_analysis.meta((-(-rows // data), num_items), torch.int8),
+        op_analysis.meta((kb, num_items), torch.int8), op_analysis.meta((kb,), torch.int32))
+    ranks = {r for g in costs.collective_groups for r in g}
+    rl = roofline.roofline_terms(costs.flops, costs.hbm_bytes, costs.collective_bytes, chip=chip,
+                                 dtype=cfg.operand_dtype,
+                                 link_bytes_per_s=roofline.link_bytes_per_s(ranks, chip))
+    # the miner's useful-FLOPs model: K containment tests per row, each a
+    # words-per-row AND+popcount pass over packed uint32 bitsets
+    useful_flops = 2.0 * rows * num_items * k_cands / 256
+    return {
+        "rows_per_dispatch": rows,
+        "candidate_rows": k_cands,
+        "flops_per_dispatch": costs.flops,
+        "hbm_bytes_per_dispatch": costs.hbm_bytes,
+        "roofline_s_per_dispatch": rl.bound_s,
+        "roofline_dominant": rl.dominant,
+        "useful_flops_per_dispatch": useful_flops,
+        "useful_flops_ratio": useful_flops / max(costs.flops, 1.0),
+    }
 
 
 def main(argv=None):
@@ -284,8 +332,30 @@ def run(args, mesh):
             print(f"[obs] wrote {len(tracer.spans())} spans -> {args.trace_out} "
                   "(load in ui.perfetto.dev)", file=sys.stderr)
         if args.metrics_out and writer:
+            counters = obs.counters()
+            out = {"seconds": dt, "counters": counters}
+            k_cands = int(counters.get("mine_max_candidate_bucket", 0))
+            measured = counters.get('mine_phase_seconds{phase="count_kernel"}', 0.0)
+            dispatches = int(counters.get("mine_chunks_streamed", 0))
+            if k_cands > 0:
+                from repro_torch.launch.roofline import detect_chip
+
+                chip = detect_chip(device) if device.type == "cuda" else None
+                rows = min(args.stream_chunk_rows, store.num_transactions)
+                try:
+                    static = static_count_cost(cfg, mesh, rows, store.num_items, k_cands, chip=chip)
+                except Exception as e:  # noqa: BLE001 — the estimate is advisory, as in the JAX CLI
+                    static = {"error": f"{type(e).__name__}: {e}"}
+                else:
+                    static["count_dispatches"] = dispatches
+                    static["measured_count_kernel_s"] = measured
+                    ideal = static["roofline_s_per_dispatch"] * max(dispatches, 1)
+                    # the interesting signal is its TREND as padding and
+                    # bucketing knobs move, not its absolute value
+                    static["measured_vs_roofline"] = measured / max(ideal, 1e-12)
+                out["static_cost"] = static
             with open(args.metrics_out, "w") as f:
-                json.dump({"seconds": dt, "counters": obs.counters()}, f, indent=2)
+                json.dump(out, f, indent=2)
             print(f"[obs] wrote job counters -> {args.metrics_out}", file=sys.stderr)
 
     print(json.dumps({"seconds": dt, "total_frequent": res.total_frequent,

@@ -9,6 +9,7 @@ fixture, so every worker collects the same tests).  Run on the card with
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
 
+import importlib
 import sys
 import time
 
@@ -116,7 +117,7 @@ def test_k1_kernel_edges(cuda, n, mode):
 def test_k1_kernel_row_slabs(cuda, mode, monkeypatch):
     """With the bitmap scratch capped at one slab of 1,024 rows, a launch
     walks 5 slabs of 4,100 rows and still gives the plain version's counts."""
-    from repro_torch.kernels import support_count_packed as k1
+    k1 = importlib.import_module("repro_torch.kernels.support_count_packed")
 
     tp, cp, lengths = k1_edge_problem(4100, seed=4)
     t, c, ln = _words(tp, cuda), _words(cp, cuda), torch.from_numpy(lengths).to(cuda)
@@ -169,7 +170,7 @@ def _dense_kernel_exact(dev, t, c, lengths, operand_dtype):
     """K3 on (t, c, lengths) with the item axis padded to the kernel's width:
     one launch, exactly the plain version on the card and on the CPU, and
     K1's counts on the same candidates.  Returns the counts."""
-    from repro_torch.kernels import support_count as k3
+    k3 = importlib.import_module("repro_torch.kernels.support_count")
 
     i = t.shape[1]
     _, dt = k3.DTYPES[operand_dtype]
@@ -474,7 +475,7 @@ def test_k3_at_chunk_rows(cuda, rows, operand_dtype):
     by ``place_words``) at chunk row counts that are not multiples of its
     256-row tile, against its plain version."""
     from repro_torch.core import apriori
-    from repro_torch.kernels import support_count as k3
+    k3 = importlib.import_module("repro_torch.kernels.support_count")
 
     rng = np.random.default_rng(rows)
     t = (rng.random((rows, 1000)) < 0.3).astype(np.int8)

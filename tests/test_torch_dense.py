@@ -5,6 +5,8 @@ byte-equal to the JAX packer (F3); and the dense ``mine`` dict-identical to
 the JAX package's dense mine and to the port's packed mine.  Counts are
 exact: no tolerance anywhere."""
 
+import importlib
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -21,7 +23,7 @@ from repro_torch.core import apriori as tapr  # noqa: E402
 from repro_torch.core import itemsets as tenc  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
-from repro_torch.kernels import support_count as k3  # noqa: E402
+k3 = importlib.import_module("repro_torch.kernels.support_count")
 
 from conftest import random_problem  # noqa: E402
 from test_kernels import SHAPES  # noqa: E402

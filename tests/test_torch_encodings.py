@@ -101,12 +101,15 @@ def test_quest_rows_identical_under_seed():
 # ------------------------------------------------------------- hygiene -------
 def _port_files():
     root = Path(REPO_ROOT)
-    return sorted((root / "src" / "repro_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    port = sorted((root / "src" / "repro_torch").rglob("*.py"))
+    examples = sorted((root / "examples" / "torch").glob("*.py"))
+    return port + examples + [root / "chip_smoke.py"]
 
 
 def test_port_imports_neither_jax_nor_repro():
     files = _port_files()
     assert len(files) > 10 and all(f.exists() for f in files)
+    assert sum(f.parent.name == "torch" and f.parent.parent.name == "examples" for f in files) == 9
     bad = []
     for f in files:
         tree = ast.parse(f.read_text(), filename=str(f))

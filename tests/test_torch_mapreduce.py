@@ -113,11 +113,14 @@ def test_paper_1d_layout_and_son(quest_db):
 
 @pytest.mark.parametrize("how,error,deadline_s", [("raise", ValueError, DEADLINE_S),
                                                   ("exit", RankFailed, DEADLINE_S),
+                                                  ("exit_late", RankFailed, DEADLINE_S),
                                                   ("hang", TimeoutError, 15.0)])
 def test_failing_rank_fails_spawn_and_leaves_no_process(tmp_path, how, error, deadline_s):
     """A rank that raises (its own error comes back), dies without a Python
     error, or hangs makes the spawn raise within its deadline, and every
-    rank's process is gone afterwards."""
+    rank's process is gone afterwards.  A silent death is named even when a
+    peer's error reaches the parent before the dead rank's exit code does
+    (``exit_late``; under load a lost-connection error often does)."""
     import time
 
     t0 = time.monotonic()

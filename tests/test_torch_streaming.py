@@ -9,6 +9,7 @@ and to the port's in-memory ``mine``; the card-side encoders
 byte-equal to the host's; an ``obs`` recorder sees the JAX miner's phases
 and chunks; and the CLI with ``--store`` prints the JAX CLI's JSON line."""
 
+import importlib
 import json
 import sys
 
@@ -32,7 +33,7 @@ from repro_torch.core.itemsets import pack_bits  # noqa: E402
 from repro_torch.data import store as st  # noqa: E402
 from repro_torch.distributed.fault_tolerance import FaultConfig  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels import support_count as k3  # noqa: E402
+k3 = importlib.import_module("repro_torch.kernels.support_count")
 
 
 def _cfgs(representation="dense", **kw):

@@ -163,10 +163,17 @@ def serve(mesh, rb, baskets, top_k, batch_size):
 
 # ----------------------------------------------------------------- faults --
 def fail(mesh, how, pid_dir):
-    """Rank 1 raises, hangs or exits; the other ranks wait in a collective."""
+    """Rank 1 raises, hangs or exits; the other ranks wait in a collective.
+    ``exit_late``: rank 0 raises at once, as a peer's lost-connection error
+    does, and rank 1 exits without a word 0.3 s later."""
     with open(os.path.join(pid_dir, str(mesh.rank)), "w") as f:
         f.write(str(os.getpid()))
     mesh.barrier()   # every rank has written its pid
+    if how == "exit_late":
+        if mesh.rank == 0:
+            raise RuntimeError("Connection reset by peer")
+        time.sleep(0.3)
+        os._exit(3)
     if mesh.rank == 1:
         if how == "raise":
             raise ValueError("rank 1 failed on purpose")

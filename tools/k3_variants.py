@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib
 import json
 import sys
 
@@ -36,7 +37,7 @@ import torch
 from variants import alternate, build, card, smoke
 
 from repro_torch.kernels import ops
-from repro_torch.kernels import support_count as k3
+k3 = importlib.import_module("repro_torch.kernels.support_count")
 
 SWEEP = [(8, 16, 4), (100, 64, 33), (256, 128, 128), (300, 130, 257), (512, 512, 300), (200, 1100, 70),
          (1000, 130, 600), (1000, 1100, 600), (20000, 1000, 3000), (300, 64, 70000)]
