@@ -61,6 +61,16 @@ each with its own CUDA context, every rank's result checked:
 * ``[mesh-recommend]``: the 43,518-rule rulebook over 3 uneven rule shards
   of a (2, 3) mesh, ``recommend`` of the first 4,096 rows through K2 within
   rtol 1e-5, atol 1e-6 of ``[main]``'s, items equal except at ties;
+* ``[mesh-gateway]`` and ``[mesh-refresh]`` (module 7b), one spawn of the
+  2 x 2 mesh: ``Gateway(mesh=)`` on the 43,518-rule rulebook, rank 0
+  serving the store's first 4,096 rows from 16 clients with a hot swap to
+  the 21,334-rule rulebook at half load, then 5,000 rows appended and
+  ``RefreshController(mesh=).refresh_now()`` on every rank (a delta mine,
+  dict-identical to ``[delta]``'s), then the rows again: zero drops,
+  generations [0, 1, 2], every response bit for bit its generation's mesh
+  ``recommend`` and within rtol 1e-5, atol 1e-6 of its single-device one;
+  K2 at each rank's blocks of a full bucket bit for bit
+  ``rule_match_ordered``;
 * ``[mesh-cli]``: the mine CLI under ``torchrun`` on a 2 x 2 mesh prints the
   single-device CLI's last line;
 * ``[mesh-nccl]``: ``[mesh]`` over NCCL, one rank a card, only where the
@@ -1372,6 +1382,7 @@ def delta_phase(streaming, son_mod, ops_, store, cfg, root, dev, card):
     _, cache = inc.build_count_cache(open_store(path), cfg, dev)
     build_s = time.perf_counter() - t0
     build_launches = ops_.launch_counts()["support_count_packed"]
+    shutil.copytree(path, os.path.join(root, "refresh-mesh"))   # [mesh-refresh] appends to it
     append_n = int(APPEND_FRACTION * store.num_transactions)
     append_rows(path, append_n, seed=1)
     shutil.copytree(path, os.path.join(root, "delta-mesh"))   # [mesh-stream]'s mine_delta
@@ -1624,28 +1635,32 @@ def _rank_setup(mesh):
     return time.time()
 
 
-class AllReduceTimes:
-    """Within ``with``: host time of every mesh all-reduce (the device
-    synchronised on both sides, so each is the collective alone)."""
+class CollectiveTimes:
+    """Within ``with``: host time of every all-reduce and all-gather this
+    rank sends (the device synchronised on both sides, so each is the
+    collective alone)."""
 
     def __enter__(self):
+        import torch.distributed as dist
 
-        self.mod = importlib.import_module("repro_torch.core.mapreduce")
-        self.fn, self.times = self.mod.all_reduce, []
+        self.dist, self.saved, self.times = dist, (dist.all_reduce, dist.all_gather), []
 
-        def timed(x, mesh, axes, op="sum"):
-            torch.cuda.synchronize(mesh.device)
-            t0 = time.perf_counter()
-            out = self.fn(x, mesh, axes, op)
-            torch.cuda.synchronize(mesh.device)
-            self.times.append(time.perf_counter() - t0)
-            return out
+        def timed(fn):
+            def run(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.times.append(time.perf_counter() - t0)
+                return out
 
-        self.mod.all_reduce = timed
+            return run
+
+        dist.all_reduce, dist.all_gather = (timed(fn) for fn in self.saved)
         return self
 
     def __exit__(self, *exc):
-        self.mod.all_reduce = self.fn
+        self.dist.all_reduce, self.dist.all_gather = self.saved
 
 
 def _one_rank_at_a_time(mesh, fn):
@@ -1659,29 +1674,34 @@ def _one_rank_at_a_time(mesh, fn):
     return out
 
 
-def _allreduce_alone_ms(mesh, x, axes, reps=20) -> float:
-    """One all-reduce of ``x`` over ``axes`` with every rank there at once
-    (after a barrier, device synchronised): the collective without the
-    wait for the slowest rank that a mine's all-reduces include."""
-    import torch.distributed as dist
-
-    group = mesh.group(axes)
+def _alone_ms(mesh, collective, reps=20) -> float:
+    """``collective()`` with every rank there at once (after a barrier,
+    device synchronised): the collective without the wait for the slowest
+    rank that a mine's collectives include."""
     mesh.barrier()
-    dist.all_reduce(x, group=group)
+    collective()
     torch.cuda.synchronize(mesh.device)
     mesh.barrier()
     t0 = time.perf_counter()
     for _ in range(reps):
-        dist.all_reduce(x, group=group)
+        collective()
     torch.cuda.synchronize(mesh.device)
     return (time.perf_counter() - t0) / reps * 1e3
 
 
+def _allreduce_alone_ms(mesh, x, axes, reps=20) -> float:
+    """One all-reduce of ``x`` over ``axes``, alone (:func:`_alone_ms`)."""
+    import torch.distributed as dist
+
+    group = mesh.group(axes)
+    return _alone_ms(mesh, lambda: dist.all_reduce(x, group=group), reps)
+
+
 def _timed_run(mesh, ops, run, kernel):
     """``run()`` from a barrier, with the launch counts reset just before
-    and read just after: (result, wall s, launches, all-reduce times)."""
+    and read just after: (result, wall s, launches, collective times)."""
     ops.reset_launch_counts()
-    with AllReduceTimes() as ar:
+    with CollectiveTimes() as ar:
         mesh.barrier()
         t0 = time.perf_counter()
         res = run()
@@ -1737,8 +1757,9 @@ def mesh_rank(mesh, paths):
         ms = _one_rank_at_a_time(mesh, lambda: (fn(t, c, ln), cuda_ms(lambda: fn(t, c, ln), 10))[1])
         out[name]["ms"] = ms
     del shapes
-    out["allreduce_alone_ms"] = _allreduce_alone_ms(mesh, torch.zeros(kp, dtype=torch.int32, device=dev),
-                                                    ("data", "model"))
+    # the step's one collective: its model block of the pass's counts over data
+    out["allreduce_alone_ms"] = _allreduce_alone_ms(mesh, torch.zeros(kp // 2, dtype=torch.int32, device=dev),
+                                                    ("data",))
 
     # [mesh-stream]: from [store]'s store
     store = open_store(paths["store"])
@@ -1813,7 +1834,9 @@ def mesh_recommend_rank(mesh, paths):
     got, plain = ops.rule_match(b, *cols, impl="kernel"), ops.rule_match(b, *cols, impl="ref")
     torch.cuda.synchronize()
     ms = _one_rank_at_a_time(mesh, lambda: (ops.rule_match(b, *cols), cuda_ms(lambda: ops.rule_match(b, *cols), 20))[1])
-    alone = _allreduce_alone_ms(mesh, torch.zeros_like(got), ("model",))
+    from repro_torch.core.mapreduce import ordered_sum
+
+    alone = _alone_ms(mesh, lambda: ordered_sum(got, mesh, ("model",)))
     return dict(rank=mesh.rank, ready=ready, wall=wall, launches=launches, allreduce_ms=[t * 1e3 for t in times],
                 allreduce_alone_ms=alone, score_bytes=got.numel() * 4,
                 items=rec.items, scores=rec.scores, baskets=int(b.shape[0]), rules=int(cols[0].shape[0]),
@@ -1835,8 +1858,8 @@ def _spawn_mesh(fn, shape, paths, backend="gloo", device="cuda:0"):
 
 
 def _ar_line(times):
-    return (f"{len(times)} all-reduces, {np.mean(times):.3f} ms each (max {max(times):.3f})" if times
-            else "no all-reduce")
+    return (f"{len(times)} collectives, {np.mean(times):.3f} ms each (max {max(times):.3f})" if times
+            else "no collective")
 
 
 def mesh_phase(streaming, ops, paths, want, passes, dev, card, backend="gloo", device="cuda:0", tag="mesh",
@@ -1872,8 +1895,8 @@ def mesh_phase(streaming, ops, paths, want, passes, dev, card, backend="gloo", d
         f"(spawn, imports, CUDA contexts, rendezvous, groups) {setup_s:.3f} s; whole spawn {total_s:.3f} s [{card}]")
     for o in outs:
         log(f"[{tag}] rank {o['rank']}: packed mine {o['mine']['wall']:.3f} s (K1 {o['mine']['launches']} launches, "
-            f"{_ar_line(o['mine']['allreduce_ms'])}, which wait for the slowest rank; one all-reduce of the "
-            f"pass's 256 KB alone {o['allreduce_alone_ms']:.3f} ms); mine_son over 8 partitions {o['son']['wall']:.3f} s "
+            f"{_ar_line(o['mine']['allreduce_ms'])}, which wait for the slowest rank; the step's all-reduce "
+            f"of its 128 KB block of a pass alone {o['allreduce_alone_ms']:.3f} ms); mine_son over 8 partitions {o['son']['wall']:.3f} s "
             f"(K1 {o['son']['launches']}); K1 at its level-2 blocks N={o['k1']['rows']} x Kp={o['k1']['cands']}: "
             f"{o['k1']['ms']:.4f} ms, exact [{card}]")
         log(f"[{tag}-dense] rank {o['rank']}: bf16 mine {o['dense']['wall']:.3f} s (K3 {o['dense']['launches']} "
@@ -1938,11 +1961,198 @@ def mesh_recommend_phase(paths, rec, card):
             raise AssertionError(f"[mesh-recommend] rank {o['rank']}: items or K2 differ, {o['launches']} launches")
         log(f"[mesh-recommend] rank {o['rank']}: recommend of 4,096 baskets {o['wall']:.3f} s, K2 {o['launches']} "
             f"launches; K2 at {o['baskets']} baskets x {o['rules']} rules {o['ms']:.4f} ms (plain max abs err "
-            f"{o['max_abs_err']:.2e}); {_ar_line(o['allreduce_ms'])}; the rule-axis all-reduce of a batch's "
-            f"{o['score_bytes']} B of scores alone {o['allreduce_alone_ms']:.3f} ms [{card}]")
+            f"{o['max_abs_err']:.2e}); {_ar_line(o['allreduce_ms'])}; the rule-axis ordered sum (an all-gather) "
+            f"of a batch's {o['score_bytes']} B of scores alone {o['allreduce_alone_ms']:.3f} ms [{card}]")
     log(f"[mesh-recommend] (2, 3): {outs[0]['num_rules']} rules in {outs[0]['rows']} rows over 3 rule shards; setup "
         f"{setup_s:.3f} s, whole spawn {total_s:.3f} s; every rank within rtol {RTOL}, atol {ATOL} of [main]'s "
         f"recommend, items equal except at {int(close.sum())} slots within tolerance of a tie [{card}]")
+    return outs
+
+
+MESH_LADDER = (2, 4, 8, 16, 32, 64)   # Gateway(max_batch=64, warmup="ladder") over 2 data shards
+
+
+def mesh_gateway_rank(mesh, paths):
+    """One rank of the (2, 2) mesh serving tier, ``[mesh-gateway]`` then
+    ``[mesh-refresh]``: every rank builds ``Gateway(mesh=)`` on the
+    43,518-rule rulebook and ``RefreshController(mesh=)`` in delta mode on
+    a copy of the store whose count cache covers its 100,000 rows.  Rank 0
+    drives 16 clients over the store's first 4,096 rows with a hot swap to
+    the 21,334-rule rulebook at half load, appends 5,000 rows, refreshes,
+    and drives them again; the others follow, and call ``refresh_now`` too.
+    The launch counts are set to 0 before the gateway is built and read
+    after its close.  Then, as references: every rank's mesh ``recommend``
+    of each generation, and K2 at this rank's blocks of a full bucket
+    against its plain versions."""
+    ready = _rank_setup(mesh)
+    from repro_torch.core.apriori import AprioriConfig
+    from repro_torch.data.store import open_store
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving import refresh as refresh_mod
+    from repro_torch.serving.gateway import Gateway
+    from repro_torch.serving.recommend import recommend
+    from repro_torch.serving.refresh import RefreshController
+    from repro_torch.serving.rulebook import Rulebook, place_rulebook
+
+    dev = mesh.device
+    packed = np.load(paths["requests"])
+    rbs = [Rulebook.load(paths["rulebook"]), Rulebook.load(paths["rulebook_swap"])]
+    made = []
+    compile_rulebook = refresh_mod.compile_rulebook
+
+    def captured(res, **kw):   # the refresh's result and rulebook, as references
+        rb = compile_rulebook(res, **kw)
+        made.append((res, rb))
+        return rb
+
+    cfg = AprioriConfig(min_support=0.002, max_k=4, representation="packed", data_axes=("data",),
+                        model_axis="model")
+    out = dict(rank=mesh.rank, ready=ready)
+    refresh_mod.compile_rulebook = captured
+    ops.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        gw = Gateway(rbs[0], mesh=mesh, device=dev, warmup="ladder", max_batch=64, top_k=10)
+        ctl = RefreshController(paths["refresh"], gw, cfg, mesh=mesh, device=dev, chunk_rows=STREAM_CHUNK_ROWS,
+                                min_confidence=0.4, mode="delta")
+        out["build_s"] = time.perf_counter() - t0
+        try:
+            if mesh.rank == 0:
+                def swap():
+                    t = time.perf_counter()
+                    out["swapped"] = gw.hot_swap(rbs[1])
+                    out["swap_s"] = time.perf_counter() - t
+
+                loads = [drive_clients(lambda i: gw.submit(packed[i]), REQUESTS, swap)]
+                t = time.perf_counter()
+                out["appended"] = int(APPEND_FRACTION * open_store(paths["refresh"]).num_transactions)
+                append_rows(paths["refresh"], out["appended"], seed=1)
+                out["append_s"] = time.perf_counter() - t
+                t = time.perf_counter()
+                out["refreshed"] = ctl.refresh_now()
+                out["refresh_s"] = time.perf_counter() - t
+                loads.append(drive_clients(lambda i: gw.submit(packed[i]), REQUESTS))
+                stats = gw.stats()
+                out["stats"] = {k: stats[k] for k in ("batches", "batch_occupancy", "latency", "cache_hits")}
+                out["loads"] = [dict(items=np.stack([r.items for r in got]), scores=np.stack([r.scores for r in got]),
+                                     gens=np.array([r.generation for r in got]),
+                                     buckets=np.array([r.bucket for r in got]), failed=failed, wall=wall)
+                                for got, failed, wall in loads]
+            else:
+                t = time.perf_counter()
+                out["refreshed"] = ctl.refresh_now()
+                out["refresh_s"] = time.perf_counter() - t   # from the follower's call: load and refresh
+        finally:
+            gw.close()
+    finally:
+        refresh_mod.compile_rulebook = compile_rulebook
+    counts = ops.launch_counts()
+    out.update(k2=counts["rule_match"], k1=counts["support_count_packed"], k3=counts["support_count"],
+               timing=dict(gw.mesh_timing), history=ctl.history, ladder=gw.ladder())
+    res2, rb2 = made[-1]
+    out["digest2"] = digest(res2)
+    rbs.append(rb2)
+    # references: each generation's mesh recommend (every rank), and on rank
+    # 0 its single-device recommend
+    refs = [recommend(rb, packed, top_k=10, batch_size=1024, device=dev, mesh=mesh) for rb in rbs]
+    if mesh.rank == 0:
+        out["refs"] = [(r.items, r.scores) for r in refs]
+        single = recommend(place_rulebook(rb2, dev), packed, top_k=10, batch_size=1024, device=dev)
+        out["single2"] = (single.items, single.scores)
+    # K2 at this rank's blocks of a full bucket (32 of its 64 baskets, its
+    # rule block of generation 0) against its plain versions, then timed
+    # one rank at a time
+    from repro_torch.core.mapreduce import shard_rows
+
+    placed = place_rulebook(rbs[0], dev, mesh=mesh)
+    b = torch.from_numpy(np.ascontiguousarray(shard_rows(packed[:64].view(np.int32), mesh, ("data",)))).to(dev)
+    cols = (placed.ante_packed, placed.ante_len, placed.cons_packed, placed.scores)
+    got = ops.rule_match(b, *cols, impl="kernel")
+    plain, ordered = ops.rule_match(b, *cols, impl="ref"), ref.rule_match_ordered(b, *cols)
+    torch.cuda.synchronize()
+    out["k2_block"] = dict(baskets=int(b.shape[0]), rules=int(cols[0].shape[0]),
+                           max_abs_err=float((got - plain).abs().max().item()), ordered=bool(torch.equal(got, ordered)),
+                           ms=_one_rank_at_a_time(mesh, lambda: (ops.rule_match(b, *cols),
+                                                               cuda_ms(lambda: ops.rule_match(b, *cols), 50))[1]),
+                           plain_ms=_one_rank_at_a_time(mesh, lambda: cuda_ms(lambda: ops.rule_match(b, *cols,
+                                                                                                   impl="ref"), 5)))
+    return out
+
+
+def mesh_gateway_phase(paths, want, want_by_gen, card):
+    """``[mesh-gateway]`` and ``[mesh-refresh]`` in one spawn of the (2, 2)
+    mesh: zero drops, generations [0, 1, 2]; every response bit for bit its
+    generation's mesh ``recommend`` and within rtol 1e-5, atol 1e-6 of its
+    single-device ``recommend`` (items equal except at ties); the refresh
+    on every rank delta mode, dict-identical to ``[delta]``'s mine_delta;
+    K2 a rank = 3 warm ladders + every batch, K1 > 0 in the refresh."""
+    outs, setup_s, total_s = _spawn_mesh(mesh_gateway_rank, MESH, paths)
+    lead = outs[0]
+    want_by_gen = dict(want_by_gen)
+    want_by_gen[2] = lead["single2"]
+    batches = lead["stats"]["batches"]
+    for o in outs:
+        if o["refreshed"] != 2 or [h["mode"] for h in o["history"]] != ["delta"] or o["digest2"] != want["delta"]:
+            raise AssertionError(f"[mesh-refresh] rank {o['rank']}: generation {o['refreshed']}, history "
+                                 f"{o['history']}, result equal to [delta]'s {o['digest2'] == want['delta']}")
+        if o["timing"]["batches"] != batches or o["k2"] != 3 * len(MESH_LADDER) + batches or o["k1"] == 0 \
+                or o["k3"] or tuple(o["ladder"]) != MESH_LADDER:
+            raise AssertionError(f"[mesh-gateway] rank {o['rank']}: {o['timing']['batches']} batches of {batches}, "
+                                 f"K2 {o['k2']}, K1 {o['k1']}, K3 {o['k3']}, ladder {o['ladder']}")
+        blk = o["k2_block"]
+        if not blk["ordered"] or blk["max_abs_err"] > ATOL + RTOL * 100:
+            raise AssertionError(f"[mesh-gateway] rank {o['rank']}: K2 at its blocks differs from its plain versions")
+    gens = set()
+    for n, load in enumerate(lead["loads"]):
+        responses = len(load["gens"])
+        if responses != REQUESTS or sum(load["failed"].values()):
+            raise AssertionError(f"[mesh-gateway] load {n}: {responses} responses, {load['failed']}")
+        for g in sorted(set(load["gens"].tolist())):
+            rows = load["gens"] == g
+            items, scores = lead["refs"][g]
+            if not (np.array_equal(load["items"][rows], items[rows])
+                    and np.array_equal(load["scores"][rows].view(np.uint32), scores[rows].view(np.uint32))):
+                raise AssertionError(f"[mesh-gateway] load {n}: generation {g}'s responses differ from its mesh "
+                                     "recommend")
+            w_items, w_scores = want_by_gen[g]
+            w_items, w_scores = np.asarray(w_items)[rows], np.asarray(w_scores)[rows]
+            np.testing.assert_allclose(load["scores"][rows], w_scores, rtol=RTOL, atol=ATOL)
+            tie = np.abs(np.diff(w_scores, axis=1)) <= ATOL + RTOL * np.abs(w_scores[:, 1:])
+            close = np.zeros_like(w_scores, dtype=bool)
+            close[:, 1:] |= tie
+            close[:, :-1] |= tie
+            if not np.array_equal(load["items"][rows][~close], w_items[~close]):
+                raise AssertionError(f"[mesh-gateway] load {n}: generation {g}'s items differ from its "
+                                     "single-device recommend")
+            gens.add(g)
+    if sorted(gens) != [0, 1, 2] or set(lead["loads"][1]["gens"].tolist()) != {2}:
+        raise AssertionError(f"[mesh-gateway] generations {sorted(gens)}")
+    lat = lead["stats"]["latency"]
+    walls = [load["wall"] for load in lead["loads"]]
+    t_spawn = max(o["ready"] for o in outs) - setup_s
+    log(f"[mesh-gateway] (2, 2) over gloo on the one card: setup (spawn, CUDA contexts, rendezvous, groups) "
+        f"{setup_s:.3f} s, whole spawn {total_s:.3f} s; {2 * REQUESTS} requests from {CLIENTS} clients in two loads "
+        f"of {walls[0]:.3f} / {walls[1]:.3f} s = {REQUESTS / walls[0]:.0f} / {REQUESTS / walls[1]:.0f} qps; registry "
+        f"p50 {lat['p50_ms']:.3f} ms, p99 {lat['p99_ms']:.3f} ms; {batches} batches, occupancy "
+        f"{lead['stats']['batch_occupancy']:.3f}, cache hits {lead['stats']['cache_hits']}; hot swap "
+        f"{lead['swap_s']:.3f} s to generation {lead['swapped']} [{card}]")
+    for o in outs:
+        t, blk = o["timing"], o["k2_block"]
+        per = {k: t[k] / max(t["batches"], 1) * 1e3 for k in ("broadcast_s", "match_s", "reduce_s", "gather_s")}
+        log(f"[mesh-gateway] rank {o['rank']}: set-up {o['ready'] - t_spawn:.3f} s, gateway and "
+            f"controller built in {o['build_s']:.3f} s; a batch's broadcast {per['broadcast_s']:.3f} ms, match "
+            f"(H2D, K2) {per['match_s']:.3f} ms, rule-axis sum and top-k {per['reduce_s']:.3f} ms, data-axis "
+            f"gather {per['gather_s']:.3f} ms; K2 {o['k2']} launches (3 warm ladders of {len(MESH_LADDER)} + "
+            f"{t['batches']} batches); K2 at its blocks of a full bucket ({blk['baskets']} baskets x "
+            f"{blk['rules']} rules) {blk['ms']:.4f} ms, plain {blk['plain_ms']:.3f} ms, bit for bit "
+            f"rule_match_ordered [{card}]")
+        log(f"[mesh-refresh] rank {o['rank']}: refresh_now {o['refresh_s']:.3f} s, "
+            f"mode {o['history'][0]['mode']} ({o['history'][0]['reason']}), cycle {o['history'][0]['seconds']:.3f} s, "
+            f"{o['history'][0]['rules']} rules; K1 {o['k1']} launches [{card}]")
+    log(f"[mesh-refresh] appended {lead['appended']} rows in {lead['append_s']:.3f} s; the leader's "
+        f"refresh_now {lead['refresh_s']:.3f} s; every rank's result dict-identical to [delta]'s mine_delta")
+    log("[mesh-gateway] zero drops; generations [0, 1, 2]; every response bit for bit its generation's mesh "
+        f"recommend and within rtol {RTOL}, atol {ATOL} of its single-device recommend [{card}]")
     return outs
 
 
@@ -2028,6 +2238,10 @@ def dryrun_phase():
     flops = 2.0 * 4096 * 2048 * 65536
     if any(r["flops_per_dev"] != flops for r in recs):
         raise AssertionError(f"[dryrun] per-rank flops {[r['flops_per_dev'] for r in recs]} != {flops:.4e}")
+    # one all-reduce a rank: the whole (K,) counts on paper_1d, the rank's
+    # K/16 block over the data axes on the 2-D layouts (the JAX dry run's)
+    if [r["coll_per_dev"] for r in recs] != [65536 * 4, 65536 // 16 * 4, 65536 // 16 * 4]:
+        raise AssertionError(f"[dryrun] collective bytes a rank {[r['coll_per_dev'] for r in recs]}")
     log(f"[dryrun] {wall:.2f} s, N = 2^20 x I = 2,048 x K = 2^16 on 16 x 16, one rank on the H100 SXM "
         f"data sheet: {json.dumps(recs)}")
     return recs
@@ -2311,6 +2525,11 @@ def main() -> int:
         mesh_outs = mesh_phase(streaming, ops, paths, want, mesh_passes, dev, card)
         mesh_1d_phase(paths, want, mesh_passes, card)
         rec_outs = mesh_recommend_phase(paths, rec, card)
+        paths.update(requests=os.path.join(root, "requests.npy"), refresh=os.path.join(root, "refresh-mesh"),
+                     rulebook_swap=os.path.join(root, "rulebook-swap.npz"))
+        np.save(paths["requests"], packed)
+        rb2.to_host().save(paths["rulebook_swap"])
+        gw_outs = mesh_gateway_phase(paths, want, {0: (rec.items, rec.scores), 1: (want2.items, want2.scores)}, card)
         mesh_cli_phase(card)
         mesh_nccl_phase(streaming, ops, paths, want, mesh_passes, dev, card)
 
@@ -2335,6 +2554,7 @@ def main() -> int:
              mesh_launches_per_rank=[o["mine"]["launches"] for o in mesh_outs],
              mesh_ms_per_rank=[o["k1"]["ms"] for o in mesh_outs],
              mesh_shape_per_rank=[mesh_outs[0]["k1"]["rows"], mesh_outs[0]["k1"]["cands"]],
+             mesh_refresh_launches_per_rank=[o["k1"] for o in gw_outs],
              examples_launches={n: e["launches"]["support_count_packed"] for n, e in examples.items()}),
         dict(name="rule_match", route="cuda", source="src/repro_torch/kernels/csrc/rule_match.cu",
              replaces="src/repro/kernels/rule_match.py:86", launches=k2_launches,
@@ -2349,6 +2569,9 @@ def main() -> int:
              mesh_launches_per_rank=[o["launches"] for o in rec_outs],
              mesh_ms_per_rank=[o["ms"] for o in rec_outs],
              mesh_shape_per_rank=[rec_outs[0]["baskets"], rec_outs[0]["rules"]],
+             mesh_gateway_launches_per_rank=[o["k2"] for o in gw_outs],
+             mesh_gateway_ms_per_rank=[o["k2_block"]["ms"] for o in gw_outs],
+             mesh_gateway_shape_per_rank=[gw_outs[0]["k2_block"]["baskets"], gw_outs[0]["k2_block"]["rules"]],
              examples_launches={n: e["launches"]["rule_match"] for n, e in examples.items()}),
         dict(name="support_count", route="cuda", source="src/repro_torch/kernels/csrc/support_count.cu",
              replaces="src/repro/kernels/support_count.py:69", launches=k3_launches,

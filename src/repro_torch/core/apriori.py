@@ -23,10 +23,13 @@ every rank and generates the same candidates there (it is deterministic).
 The transaction rows are split over ``cfg.data_axes`` (the HDFS block
 layout) and the candidate rows over ``cfg.model_axis``, a 2-D
 decomposition of the paper's 1-D map phase (DESIGN.md §5): each rank
-places only its row block and its candidate block, counts them, and one
-all-reduce over the data and model axes sums the row blocks' partial counts
-and assembles the candidate blocks (``core.mapreduce``).  On a mesh of one
-rank every collective is skipped.
+places only its row block and its candidate block and counts them; the
+step's one all-reduce sums the row blocks' partial counts of its candidate
+block over the data axes (``core.mapreduce``), as the JAX package's step
+with ``out_specs=P(model_axis)`` does.  The level loop then assembles the
+candidate blocks over the model axis, outside the step
+(``mapreduce.gather_blocks``).  On a mesh of one rank every collective is
+skipped.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ import torch
 
 from repro_torch.core import candidates as cand_mod
 from repro_torch.core import itemsets as enc
-from repro_torch.core.mapreduce import MapReduceJob, mapreduce, pad_rows_to_shards
+from repro_torch.core.mapreduce import MapReduceJob, gather_blocks, mapreduce, pad_rows_to_shards
 from repro_torch.launch.mesh import mesh_device
 from repro_torch.kernels import ops as kops
 k3 = importlib.import_module("repro_torch.kernels.support_count")
@@ -147,7 +150,8 @@ def make_count_step(cfg: AprioriConfig, mesh=None) -> Callable:
 
     On a mesh T is this rank's row block and C, lengths its candidate block
     (Kp / model shards rows); the step is the Map/Reduce job that counts
-    them and returns every candidate's whole count on every rank.
+    them and returns that block's counts, summed over ``cfg.data_axes``
+    (:func:`assemble_counts` makes the blocks whole).
     """
     _check_cfg(cfg)
     if cfg.representation == "dense":
@@ -163,8 +167,17 @@ def make_count_step(cfg: AprioriConfig, mesh=None) -> Callable:
     if mesh is None:
         return count_step
     _check_mesh(cfg, mesh)
-    job = MapReduceJob(map_fn=count_step, reduce_axes=tuple(cfg.data_axes))
-    return mapreduce(job, mesh, gather_axis=cfg.model_axis)
+    return mapreduce(MapReduceJob(map_fn=count_step, reduce_axes=tuple(cfg.data_axes)), mesh)
+
+
+def assemble_counts(block: torch.Tensor, cfg: AprioriConfig, mesh=None) -> np.ndarray:
+    """A pass's whole (Kp,) counts on the host of every rank, from this
+    rank's block of them (reduced over the data axes): the candidate blocks
+    gathered over ``cfg.model_axis``, staged through the host."""
+    block = block.cpu()
+    if mesh is not None and cfg.model_axis:
+        block = gather_blocks(block, mesh, (cfg.model_axis,))
+    return block.numpy()
 
 
 def place_db(t_np: np.ndarray, cfg: AprioriConfig, device="cuda", *, mesh=None) -> torch.Tensor:
@@ -261,8 +274,8 @@ def _count_level(count_step, t_dev, cand_sets: np.ndarray, num_items: int, cfg: 
     Depth-2 pipeline: pass p+1 is placed and its count launched before the
     host blocks on pass p's ``.cpu()``, so at most two passes of candidate
     tensors are live on the device (the bound ``max_candidates_per_pass``
-    exists to give).  On a mesh ``count_step`` is the mesh's step and
-    every rank gets every count.
+    exists to give).  On a mesh ``count_step`` is the mesh's step, the
+    drain assembles its blocks and every rank gets every count.
     """
     k_total = cand_sets.shape[0]
     quantum = _candidate_quantum(cfg, mesh)
@@ -272,7 +285,7 @@ def _count_level(count_step, t_dev, cand_sets: np.ndarray, num_items: int, cfg: 
     def _drain(limit):
         while len(pending) > limit:
             start, m, out = pending.pop(0)
-            counts[start : start + m] = out.cpu().numpy()[:m]
+            counts[start : start + m] = assemble_counts(out, cfg, mesh)[:m]
 
     for start in range(0, k_total, cfg.max_candidates_per_pass):
         chunk = cand_sets[start : start + cfg.max_candidates_per_pass]

@@ -27,6 +27,14 @@ def rows_isin(queries: np.ndarray, table: np.ndarray) -> np.ndarray:
     return np.isin(_row_view(queries), _row_view(table))
 
 
+def lex_sort_rows(a: np.ndarray) -> np.ndarray:
+    """Sort rows lexicographically (first column most significant)."""
+    if a.shape[0] == 0:
+        return a
+    order = np.lexsort(a.T[::-1])
+    return a[order]
+
+
 def generate_candidates(frequent: np.ndarray) -> np.ndarray:
     """F_{k-1} ⋈ F_{k-1} join + downward-closure prune -> candidates (C, k).
 

@@ -90,6 +90,23 @@ def itemsets_to_packed(itemsets: np.ndarray, num_items: int) -> np.ndarray:
     return out
 
 
+def pad_packed(packed: np.ndarray, row_multiple: int = 1, word_multiple: int = 1) -> np.ndarray:
+    """Zero-pad a packed (R, W) bitset to row/word-count multiples.
+
+    Zero rows are inert transactions; zero words add no items — both sides of
+    the ``t & c == c`` containment test are unchanged by this padding
+    (candidate *row* padding must additionally carry ``|c| = -1`` in the
+    lengths vector, which the caller owns).
+    """
+    packed = np.asarray(packed, dtype=np.uint32)
+    r, w = packed.shape
+    rp = (-r) % row_multiple
+    wp = (-w) % word_multiple
+    if rp == 0 and wp == 0:
+        return packed
+    return np.pad(packed, ((0, rp), (0, wp)))
+
+
 def singleton_itemsets(num_items: int) -> np.ndarray:
     """All 1-itemsets, (num_items, 1)."""
     return np.arange(num_items, dtype=np.int32)[:, None]

@@ -9,12 +9,13 @@ the same program on its own shard (``launch.mesh``: one process a rank);
 ``serving.recommend`` for rule matching, and :func:`hierarchical_psum`
 models the paper's rack-local combiner tier.
 
-An output split over another axis (the candidate axis over ``"model"``) is
-made whole on every rank by :func:`gather_rows`: each rank writes its slice
-into a zero-filled full-length tensor and one all-reduce over the group that
-spans the split axis and the reduce axes adds them.  Adding zeros is exact,
-and the group is never the whole world: a mesh axis outside both would add
-its replicas' copies again.
+An output split over another axis (the candidate axis over ``"model"``)
+stays split, as the JAX package's ``out_specs=P("model")`` leaves it: each
+rank reduces only its own block, and :func:`gather_blocks` assembles the
+blocks outside the step, where JAX's ``device_get`` assembles a sharded
+array.  A float sum that must come out the same bit for bit whatever the
+payload's size or place (a served score) is :func:`ordered_sum`: gloo's
+all-reduce adds the ranks' values in an order that varies along the buffer.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from repro_torch.launch.mesh import MeshLayout
 
 _REDUCERS = {
     "sum": dist.ReduceOp.SUM,
@@ -60,18 +63,44 @@ def all_reduce(x, mesh, axes, op: str = "sum"):
     return _tree_map(reduce, x)
 
 
-def gather_rows(x: torch.Tensor, mesh, axes, *, reduce_axes=()) -> torch.Tensor:
+def _block_order(mesh, axes) -> list:
+    """The group's members (in group-rank order, as ``all_gather`` lists
+    them) sorted by the block each holds when an array splits over
+    ``axes``: position p of the result is the group rank holding block p."""
+    shape = tuple(mesh.shape.values())
+    blocks = [MeshLayout(shape, mesh.axes, r).shard(axes)[0] for r in mesh.group_ranks(axes)]
+    return sorted(range(len(blocks)), key=blocks.__getitem__)
+
+
+def gather_blocks(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """The whole of a tensor split by rows over ``axes`` (this rank holds
-    block ``mesh.shard(axes)``), on every rank; with ``reduce_axes`` the
-    blocks are also summed over those axes in the same all-reduce."""
+    block ``mesh.shard(axes)``), on every rank of the group along ``axes``,
+    on ``x``'s device: one all-gather.  Under gloo the blocks travel as CPU
+    tensors, since gloo cannot all-gather CUDA tensors (it stages its CUDA
+    all-reduce through the host all the same); under NCCL on the card."""
     axes = tuple(axes)
     if not axes or mesh.group_size(axes) == 1:
-        return all_reduce(x, mesh, reduce_axes)
-    index, count = mesh.shard(axes)
-    rows = x.shape[0]
-    full = torch.zeros((rows * count,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
-    full[index * rows : (index + 1) * rows] = x
-    return all_reduce(full, mesh, axes + tuple(a for a in reduce_axes if a not in axes))
+        return x
+    wire = (x.cpu() if mesh.backend == "gloo" else x.to(mesh.device)).contiguous()
+    blocks = [torch.empty_like(wire) for _ in range(mesh.group_size(axes))]
+    dist.all_gather(blocks, wire, group=mesh.group(axes))
+    return torch.cat([blocks[p] for p in _block_order(mesh, axes)]).to(x.device)
+
+
+def ordered_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum of ``x`` over the ranks along ``axes``, added in the order of
+    their blocks (``((x_0 + x_1) + x_2) ...``) on every rank: the same bits
+    on every rank and whatever ``x``'s size, which a float all-reduce does
+    not promise (gloo starts its ring at another rank for each part of the
+    buffer).  One all-gather of the partials."""
+    axes = tuple(axes)
+    if not axes or mesh.group_size(axes) == 1:
+        return x
+    parts = gather_blocks(x[None], mesh, axes)
+    out = parts[0].clone()
+    for part in parts[1:]:
+        out += part
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,7 +111,7 @@ class MapReduceJob:
                  task with its combiner already folded in (emit *partial
                  sums*, not per-record pairs; Hadoop combiners do the same).
     reduce_axes: mesh axes over which partials are reduced (the shuffle).
-    reduce_op:   'sum' | 'max' | 'min'.
+    reduce_op:   'sum' | 'max' | 'min' | 'ordered_sum' (:func:`ordered_sum`).
     """
 
     map_fn: Callable[..., Any]
@@ -90,26 +119,27 @@ class MapReduceJob:
     reduce_op: str = "sum"
 
 
-def mapreduce(job: MapReduceJob, mesh, *, gather_axis: str | None = None) -> Callable[..., Any]:
+def mapreduce(job: MapReduceJob, mesh, *, on_map: Callable[[], Any] | None = None) -> Callable[..., Any]:
     """Run a :class:`MapReduceJob` on this rank of ``mesh``.
 
     Returns ``fn(*shard_args) -> reduced``: the map on this rank's shards,
     then the reduce over ``job.reduce_axes``; every rank of those axes gets
-    the result.  With ``gather_axis``, the map's output is this rank's row
-    block of a tensor split over that axis (sum jobs only) and the result is
-    the whole tensor on every rank (:func:`gather_rows`).
+    the result.  An output the map splits over another axis stays split:
+    each rank gets its own block, reduced (:func:`gather_blocks` makes it
+    whole).  ``on_map()``, if given, runs between the map and the reduce (a
+    timer's lap).
     """
-    if job.reduce_op not in _REDUCERS:
+    if job.reduce_op not in _REDUCERS and job.reduce_op != "ordered_sum":
         raise ValueError(f"unknown reduce_op {job.reduce_op!r}")
-    if gather_axis is not None and job.reduce_op != "sum":
-        raise ValueError("gather_axis assembles blocks by adding zeros: sum jobs only")
     axes = tuple(job.reduce_axes)
 
     def fn(*args):
         partial = job.map_fn(*args)
-        if gather_axis is None:
-            return all_reduce(partial, mesh, axes, job.reduce_op)
-        return _tree_map(lambda t: gather_rows(t, mesh, (gather_axis,), reduce_axes=axes), partial)
+        if on_map is not None:
+            on_map()
+        if job.reduce_op == "ordered_sum":
+            return _tree_map(lambda t: ordered_sum(t, mesh, axes), partial)
+        return all_reduce(partial, mesh, axes, job.reduce_op)
 
     return fn
 

@@ -63,7 +63,7 @@ import torch
 
 from repro_torch.core import apriori as ap
 from repro_torch.core import son as son_mod
-from repro_torch.core.mapreduce import gather_rows
+from repro_torch.core.mapreduce import all_reduce
 from repro_torch.data.pipeline import ShardedBatchIterator
 from repro_torch.launch.mesh import mesh_device
 from repro_torch.distributed.checkpoint import (
@@ -112,12 +112,11 @@ def _init_acc(kp: int, device, init: np.ndarray | None = None, cfg=None, mesh=No
 
 def _reduced(acc: torch.Tensor, cfg, mesh) -> np.ndarray:
     """A pass's whole (Kp,) counts on the host of every rank: this rank's
-    partial block summed over the data axes and assembled over the model
-    axis (``mapreduce.gather_rows``).  ``acc`` itself is left as it is."""
+    partial block summed over the data axes, then assembled over the model
+    axis (``apriori.assemble_counts``).  ``acc`` itself is left as it is."""
     if mesh is None:
         return acc.cpu().numpy()
-    model = (cfg.model_axis,) if cfg.model_axis else ()
-    return gather_rows(acc.clone(), mesh, model, reduce_axes=tuple(cfg.data_axes)).cpu().numpy()
+    return ap.assemble_counts(all_reduce(acc.clone(), mesh, tuple(cfg.data_axes)), cfg, mesh)
 
 
 def _effective_chunk_rows(chunk_rows: int, cfg, mesh) -> int:

@@ -163,6 +163,7 @@ class Mesh(MeshLayout):
         shape = tuple(self.shape.values())
         self.device = torch.device(device)
         self.backend = dist.get_backend()
+        self.timeout_s = float(timeout_s)
         timeout = datetime.timedelta(seconds=timeout_s)
         grid = np.arange(self.size).reshape(shape)
         self._groups = {}
@@ -191,6 +192,17 @@ class Mesh(MeshLayout):
         out = [None] * self.size
         dist.all_gather_object(out, obj, group=self._host_group)
         return out
+
+    def broadcast(self, tensor: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Rank ``src``'s CPU ``tensor`` into every rank's, in place."""
+        dist.broadcast(tensor, src, group=self._host_group)
+        return tensor
+
+    def broadcast_object(self, obj=None, src: int = 0):
+        """Rank ``src``'s ``obj`` on every rank (pickled)."""
+        box = [obj]
+        dist.broadcast_object_list(box, src, group=self._host_group)
+        return box[0]
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank}, device={self.device}, backend={self.backend})"

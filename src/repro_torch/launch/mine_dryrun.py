@@ -15,11 +15,12 @@ Variants (the JAX package's ``launch/mine_dryrun.py``, same keys):
 Each variant is the mesh engine (``core/mapreduce.py``) around the plain
 dense count on a :class:`launch.mesh.MeshLayout` (shapes only: no rank is
 started, no device is touched), walked by ``launch.op_analysis``.  The
-collective is what the port's engine sends: on ``ours_2d`` its split output
-is assembled by one zero-filled all-reduce of the whole (K,) vector, K·4
-bytes a rank (the JAX package's all-gather sends K/M·4).  Blocks here are
-slices with no padding row, so the blocked flops equal ``ours_2d``'s (the
-JAX package pads K per rank to a 512-row block).
+collective is the step's one all-reduce of the rank's counts over the data
+axes: K·4 bytes on ``paper_1d``, K/M·4 on ``ours_2d``, whose output stays
+split over 'model' (as the JAX package's ``out_specs=P("model")``; the
+blocks are assembled outside the step).  Blocks here are slices with no
+padding row, so the blocked flops equal ``ours_2d``'s (the JAX package pads
+K per rank to a 512-row block).
 
 The three terms are the H100 SXM part's (``launch.roofline``; ``--part``
 names another): the count at the bf16 tensor-core rate, bytes at its HBM
@@ -56,7 +57,7 @@ def run(variant: str, n=1 << 20, items=2048, k_cands=1 << 16, *, part: str = "sx
     data_axes, model_axis, count = VARIANTS[variant]
     mesh = MeshLayout(*production_mesh_shape())
     cfg = AprioriConfig(data_axes=data_axes, model_axis=model_axis)
-    step = mapreduce(MapReduceJob(map_fn=count, reduce_axes=cfg.data_axes), mesh, gather_axis=model_axis)
+    step = mapreduce(MapReduceJob(map_fn=count, reduce_axes=cfg.data_axes), mesh)
     rows = n // mesh.shard(data_axes)[1]
     kb = k_cands // (mesh.shape[model_axis] if model_axis else 1)
     c = op_analysis.analyze(

@@ -25,6 +25,30 @@ tensors free when the last in-flight batch referencing them completes.
 ``(packed words, top_k, generation)`` answers repeat baskets without
 queueing; the generation in the key makes stale hits impossible after a
 swap. All counters land in `serving/metrics.py`.
+
+**On a mesh** (``mesh=``, ``launch.mesh``: one process a rank) every rank
+builds the gateway, and each holds its block of every generation's rules
+over ``rule_axis``.  Rank 0 is the leader: it alone admits requests and
+runs the batcher, the cache, the metrics and the tracer.  The other ranks
+follow: each consumes the leader's commands in one thread, in the order
+they were sent.  A command is one broadcast over the mesh's host group (a
+CPU tensor: a header and a padded bucket of packed words), and the leader
+sends it, and runs the collectives that follow it, under one lock, so the
+dispatch thread, a swap and a refresh never interleave collectives.  A
+batch runs :func:`recommend.match_batch` on every rank: its basket block
+over ``data_axes``, K2 on its rule block, the rule blocks summed in block
+order, top-k, the blocks gathered over the data axes.  Its header names
+the generation the leader read, and a follower answers it with that
+generation's block.  A swap is two commands: the rulebook's host columns
+(or, from :class:`~repro_torch.serving.refresh.RefreshController`, a mine
+on every rank), each rank placing and warming its block, and an exchange
+of every rank's outcome; only when every rank holds its block does the
+leader commit, and the commit tells the followers to drop the older
+blocks.  While the leader is idle it sends a heartbeat every quarter of the
+mesh's timeout, so a follower waiting for a command never times out.
+``close()`` on the leader resolves every admitted request, then stops the
+followers; on a follower it waits for that stop.  A mesh of one rank is
+the single-device gateway.
 """
 
 from __future__ import annotations
@@ -32,18 +56,24 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
+import traceback
 from concurrent.futures import Future
 
 import numpy as np
 import torch
 
 from repro_torch.core import itemsets as enc
-from repro_torch.device import resolve_device
+from repro_torch.data.store import open_store
+from repro_torch.launch.mesh import mesh_device
 from repro_torch.serving.batcher import AdmissionRejected, MicroBatcher, Request
 from repro_torch.serving.cache import BasketCache, basket_key
 from repro_torch.serving.metrics import GatewayMetrics
-from repro_torch.serving.recommend import _to_device, _to_host, _topk_items, make_match_step, pack_baskets
+from repro_torch.serving.recommend import make_match_step, match_batch, pack_baskets
 from repro_torch.serving.rulebook import Rulebook, place_rulebook
+
+# the leader's commands to the followers
+BATCH, PREPARE, COMMIT, REFRESH, HEARTBEAT, STOP = range(1, 7)
+_HEADER = 6   # int64 fields: op, generation, bucket, top_k, rows, send time (us)
 
 
 @dataclasses.dataclass
@@ -70,6 +100,41 @@ class _Generation:
         self.rulebook = rulebook
 
 
+class _Commands:
+    """The leader's one channel to the followers: a fixed CPU buffer (a
+    header and the largest bucket of packed words) broadcast over the
+    mesh's host group, whatever the ranks compute on (gloo cannot move CUDA
+    tensors in every collective; the words go to the card after).
+    ``lock`` is held by the leader through a command and the collectives
+    that follow it."""
+
+    def __init__(self, mesh, max_bucket: int, words: int):
+        self.mesh, self.words = mesh, words
+        self.buf = torch.zeros(2 * _HEADER + max_bucket * words, dtype=torch.int32)
+        self.head = self.buf[: 2 * _HEADER].view(torch.int64)
+        self.lock = threading.Lock()
+        self.sent = time.monotonic()
+
+    def send(self, op: int, generation: int = 0, bucket: int = 0, top_k: int = 0, rows: int = 0,
+             b: np.ndarray | None = None) -> None:
+        self.head[:] = torch.tensor([op, generation, bucket, top_k, rows, int(time.time() * 1e6)])
+        if b is not None:
+            self.buf[2 * _HEADER : 2 * _HEADER + b.size] = torch.from_numpy(b.view(np.int32).reshape(-1))
+        self.mesh.broadcast(self.buf)
+        self.sent = time.monotonic()
+
+    def recv(self):
+        """The next command: ``(op, generation, bucket, top_k, rows,
+        seconds since the leader sent it, words or None)``."""
+        self.mesh.broadcast(self.buf)
+        op, generation, bucket, top_k, rows, t_us = self.head.tolist()
+        b = None
+        if op == BATCH:
+            b = self.buf[2 * _HEADER : 2 * _HEADER + bucket * self.words].numpy()
+            b = b.reshape(bucket, self.words).view(np.uint32).copy()
+        return op, generation, bucket, top_k, rows, max(0.0, time.time() - t_us / 1e6), b
+
+
 def pow2_bucket(n: int, max_batch: int, multiple: int = 1) -> int:
     """Smallest power-of-two >= n (clamped to max_batch), rounded up to
     ``multiple`` — the bucket ladder: O(log max_batch) launch shapes
@@ -89,6 +154,7 @@ class Gateway:
         self,
         rulebook: Rulebook,
         *,
+        mesh=None,
         device="cuda",
         impl: str = "auto",
         top_k: int = 10,
@@ -98,12 +164,20 @@ class Gateway:
         p99_target_ms: float | None = None,
         queue_depth: int = 1024,
         cache_capacity: int = 4096,
+        data_axes: tuple = ("data",),
+        rule_axis: str = "model",
         warmup: bool | str = True,
         tracer=None,
         trace_root: bool = True,
     ):
         """``device``: where the rulebook lives and every match runs
         (``"cuda"`` by default; raises without CUDA unless ``"cpu"``).
+
+        ``mesh``: serve as this rank of a ``launch.mesh.Mesh`` (on its
+        device), baskets split over ``data_axes`` and rules over
+        ``rule_axis`` (the module docstring).  Every rank constructs the
+        gateway alike; rank 0 serves, the others follow until its
+        ``close()``.  A mesh of one rank is the single-device gateway.
 
         ``warmup``: ``True`` runs the bucket-ladder endpoints (1 and
         ``max_batch``) once per generation before it serves; ``"ladder"``
@@ -129,17 +203,39 @@ class Gateway:
         self.exclude_basket = exclude_basket
         self.max_batch = int(max_batch)
         self._words = enc.packed_words(self.num_items)
-        self.device = resolve_device(device)
+        self.device = mesh_device(device, mesh)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self._warmup_enabled = warmup
         self._tracer = tracer
         self._trace_root = bool(trace_root)
         self._closed = False
+        self._mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self._data_axes, self._rule_axis = tuple(data_axes), rule_axis
 
         # the SAME match step recommend() uses: gateway and batch engine
         # answer a basket bit for bit alike
         self._step = make_match_step(impl=impl)
+        self._row_multiple = 1
+        self._commands = None
+        if self._mesh is not None:
+            if rule_axis in self._data_axes or set(self._data_axes + (rule_axis,)) - set(mesh.axes):
+                raise ValueError(f"data_axes {self._data_axes} and rule_axis {rule_axis!r} must be "
+                                 f"distinct axes of the mesh {tuple(mesh.axes)}")
+            build = (self.num_items, self.max_batch, self.default_top_k, exclude_basket,
+                     self._data_axes, rule_axis, warmup, rulebook.num_rows)
+            if any(other != build for other in mesh.all_gather_object(build)):
+                raise ValueError("every rank must build the mesh gateway alike (items, max_batch, top_k, "
+                                 "exclude_basket, axes, warmup, rulebook rows)")
+            self._local_step = self._step   # a rank's own blocks: warming
+            self._step = make_match_step(impl=impl, mesh=mesh, rule_axis=rule_axis, on_map=self._lap)
+            self._row_multiple = mesh.shard(self._data_axes)[1]
+            self._commands = _Commands(mesh, pow2_bucket(self.max_batch, self.max_batch, self._row_multiple),
+                                       self._words)
+            # seconds of the batches served, each stage summed (every rank)
+            self.mesh_timing = dict(batches=0, broadcast_s=0.0, match_s=0.0, reduce_s=0.0, gather_s=0.0)
+            self._laps: list = []
+        self.leader = self._mesh is None or mesh.rank == 0
 
         self.metrics = GatewayMetrics()
         self.cache = BasketCache(cache_capacity)
@@ -148,6 +244,16 @@ class Gateway:
         self.metrics.mark_generation_commit()   # freshness clock starts now
         if warmup:
             self._warm(self._generation)
+        if not self.leader:
+            # the generations a follower holds, by id: the serving one and
+            # any prepared one
+            self._held = {0: self._generation}
+            self._refresher = None
+            self._attached = threading.Condition()
+            self._follow_error: BaseException | None = None
+            self._follower = threading.Thread(target=self._follow, name="gateway-follower", daemon=True)
+            self._follower.start()
+            return
         self.wait_controller = None
         if p99_target_ms is not None:
             from repro_torch.serving.controller import AdaptiveMaxWait
@@ -166,12 +272,28 @@ class Gateway:
             metrics=self.metrics,
             wait_controller=self.wait_controller,
         )
+        if self._mesh is not None:
+            self._quiet = threading.Event()
+            self._beat = threading.Thread(target=self._heartbeat, name="gateway-heartbeat", daemon=True)
+            self._beat.start()
 
     # ---------------------------------------------------------- lifecycle --
     def close(self) -> None:
-        """Stop admitting; every already-admitted request still resolves."""
+        """Stop admitting; every already-admitted request still resolves.
+        On a mesh the leader then stops the followers; a follower's
+        ``close()`` waits for that stop and raises what ended its loop."""
+        if not self.leader:
+            self._follower.join()
+            if self._follow_error is not None:
+                raise self._follow_error
+            return
         self._closed = True
         self._batcher.close()
+        if self._mesh is not None and not self._quiet.is_set():
+            with self._commands.lock:
+                self._quiet.set()
+                self._commands.send(STOP)
+            self._beat.join()
 
     def __enter__(self) -> "Gateway":
         return self
@@ -196,6 +318,7 @@ class Gateway:
         ``_span_parent``: internal — a router attempt span this request
         should continue (the cross-layer trace-context propagation, §13).
         """
+        self._leader_only("submit")
         if self._closed:
             self.metrics.record_admission(False)
             raise AdmissionRejected("gateway closed")
@@ -269,11 +392,18 @@ class Gateway:
                 f"hot-swap rulebook has {rulebook.num_items} items, gateway "
                 f"serves {self.num_items} — vocabulary must be stable across swaps"
             )
+        self._leader_only("prepare_swap")
         gen_id = self._generation.generation + 1 if generation is None else int(generation)
         sp = None
         if self._tracer is not None and self._trace_root:
             sp = self._tracer.root("swap.prepare", force=True, generation=gen_id)
         try:
+            if self._mesh is not None:
+                host = rulebook if rulebook.device is None else rulebook.to_host()
+                with self._commands.lock:
+                    self._commands.send(PREPARE, gen_id)
+                    self._mesh.broadcast_object(host)
+                    return self._prepared(*self._prepare_everywhere(gen_id, lambda: host))
             gen = self._place(gen_id, rulebook)
             if self._warmup_enabled:
                 self._warm(gen)          # double-buffer: warm before commit
@@ -285,13 +415,20 @@ class Gateway:
     def commit_swap(self, prepared: "_Generation") -> int:
         """Phase 2: flip the serving reference to a prepared generation —
         one atomic store, same zero-drop/zero-mix contract as
-        :meth:`hot_swap`."""
+        :meth:`hot_swap`.  On a mesh the followers commit with it (and drop
+        every other block), in the command stream."""
+        self._leader_only("commit_swap")
         sp = None
         if self._tracer is not None and self._trace_root:
             sp = self._tracer.root("swap.commit", force=True,
                                    generation=prepared.generation)
         with self._swap_lock:
-            self._generation = prepared  # the atomic store
+            if self._mesh is None:
+                self._generation = prepared  # the atomic store
+            else:
+                with self._commands.lock:   # batches read the generation under it
+                    self._generation = prepared
+                    self._commands.send(COMMIT, prepared.generation)
             self.metrics.record_swap()
             if sp is not None:
                 sp.end()
@@ -324,6 +461,7 @@ class Gateway:
         return self._batcher.capacity
 
     def stats(self) -> dict:
+        self._leader_only("stats")
         gen = self._generation
         out = self.metrics.snapshot()
         out["generation"] = gen.generation
@@ -333,6 +471,8 @@ class Gateway:
         if self.wait_controller is not None:
             out["wait_controller"] = self.wait_controller.snapshot()
         out["cache"] = self.cache.snapshot()
+        if self._mesh is not None:
+            out["mesh_timing"] = dict(self.mesh_timing)
         return out
 
     # ----------------------------------------------------------- internals --
@@ -348,12 +488,24 @@ class Gateway:
             return np.ascontiguousarray(basket)
         return pack_baskets([list(np.asarray(basket, dtype=np.int64))], self.num_items)[0]
 
+    def _leader_only(self, what: str) -> None:
+        if not self.leader:
+            raise RuntimeError(f"{what}: rank {self._mesh.rank} follows the mesh gateway's leader, "
+                               "rank 0, which alone admits requests and swaps")
+
     def _place(self, generation: int, rulebook: Rulebook) -> _Generation:
         """Commit a rulebook's columns to the gateway's device (unless they
         already live there) and wait until its copies have landed: a
         generation is published only once every one of its bytes is on
-        the card, whichever thread placed it."""
-        if rulebook.device != self.device:
+        the card, whichever thread placed it.  On a mesh this rank keeps
+        its block of the rules over the rule axis."""
+        if self._mesh is not None:
+            if rulebook.shard is None:
+                rulebook = place_rulebook(rulebook.to_host() if rulebook.device is not None else rulebook,
+                                          self.device, mesh=self._mesh, rule_axis=self._rule_axis)
+            elif (rulebook.shard.mesh, rulebook.shard.rule_axis) != (self._mesh, self._rule_axis):
+                raise ValueError("the rulebook was placed for another mesh or rule axis than the gateway's")
+        elif rulebook.device != self.device:
             rulebook = place_rulebook(rulebook, self.device)
         if self.device.type == "cuda":
             # the copies ran on this thread's current stream; another
@@ -361,49 +513,186 @@ class Gateway:
             torch.cuda.current_stream(self.device).synchronize()
         return _Generation(generation, rulebook)
 
-    def _warm(self, gen: _Generation) -> None:
-        """Run each bucket once for this generation off the serving path:
+    def ladder(self) -> list:
+        """The buckets a generation is warmed at, as dispatch pads them:
         the ladder endpoints, or with ``warmup="ladder"`` every
-        power-of-two bucket.  The first launch builds the kernel library;
-        each bucket leaves its buffers in the caching allocator."""
+        power-of-two bucket (each a multiple of the data shards)."""
         if self._warmup_enabled == "ladder":
             ns = {1 << p for p in range(self.max_batch.bit_length())
                   if 1 << p <= self.max_batch} | {self.max_batch}
         else:
             ns = {1, self.max_batch}
-        for n in sorted(ns):
-            bucket = pow2_bucket(n, self.max_batch)
-            self._match(np.zeros((bucket, self._words), np.uint32), gen, self.default_top_k)
+        return sorted({pow2_bucket(n, self.max_batch, self._row_multiple) for n in ns})
+
+    def _warm(self, gen: _Generation) -> None:
+        """Run each bucket of :meth:`ladder` once for this generation off
+        the serving path.  The first launch builds the kernel library; each
+        bucket leaves its buffers in the caching allocator.  On a mesh each
+        rank warms its own blocks (its share of the bucket against its rule
+        block), with no collective."""
+        for bucket in self.ladder():
+            if self._mesh is None:
+                self._match(np.zeros((bucket, self._words), np.uint32), gen, self.default_top_k)
+            else:
+                match_batch(self._local_step, np.zeros((bucket // self._row_multiple, self._words), np.int32),
+                            gen.rulebook, top_k=self.default_top_k, exclude_basket=self.exclude_basket)
+
+    def _lap(self, _stage=None) -> None:
+        """A mesh batch's stage has ended: its time, once the device is done."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._laps.append(time.perf_counter())
 
     def _match(self, b: np.ndarray, gen: _Generation, top_k: int):
         """Pad-free core: one padded bucket of uint32 rows to the card (as
-        int32 word views), through match + top-k, and back to host arrays.
-        The copy back waits for the launches, so a caller's clock around
-        this call spans the device work."""
-        rb = gen.rulebook
-        b_dev = _to_device(b.view(np.int32), rb.device)
-        item_scores = self._step(b_dev, rb.ante_packed, rb.ante_len, rb.cons_packed, rb.scores)
-        idx, vals = _topk_items(
-            item_scores, b_dev,
-            top_k=top_k, exclude_basket=self.exclude_basket, num_items=self.num_items,
-        )
-        return _to_host(idx, vals, b.shape[0])
+        int32 word views), through match + top-k, and back to host arrays
+        (:func:`recommend.match_batch`).  The copy back waits for the
+        launches, so a caller's clock around this call spans the device
+        work.  On a mesh every rank runs it on the same bucket."""
+        if self._mesh is None:
+            return match_batch(self._step, b.view(np.int32), gen.rulebook, top_k=top_k,
+                               exclude_basket=self.exclude_basket)
+        self._laps = [time.perf_counter()]
+        out = match_batch(self._step, b.view(np.int32), gen.rulebook, top_k=top_k,
+                          exclude_basket=self.exclude_basket, mesh=self._mesh, data_axes=self._data_axes,
+                          lap=self._lap)
+        t = self._laps
+        timing = self.mesh_timing
+        timing["batches"] += 1
+        for key, (a, z) in zip(("match_s", "reduce_s", "gather_s"), zip(t, t[1:])):
+            timing[key] += z - a
+        return out
+
+    # ---------------------------------------------------------------- mesh --
+    def _heartbeat(self) -> None:
+        """Leader: a command at least every quarter of the mesh's timeout."""
+        every = self._mesh.timeout_s / 4
+        while not self._quiet.wait(every / 4):
+            with self._commands.lock:
+                if not self._quiet.is_set() and time.monotonic() - self._commands.sent >= every:
+                    self._commands.send(HEARTBEAT)
+
+    def _prepare_everywhere(self, generation: int, make_rulebook) -> tuple:
+        """Every rank: place and warm its block of ``make_rulebook()``, then
+        exchange every rank's outcome (the barrier before a commit).
+        Returns ``(generation record or None, the ranks' errors)``: a rank
+        that failed fails the swap on every rank, and the serving
+        generation stays.  Every rank reaches the exchange, whatever
+        failed before it, or the others would wait there."""
+        try:
+            gen = self._place(generation, make_rulebook())
+            if self._warmup_enabled:
+                self._warm(gen)
+            error = None
+        except Exception:  # noqa: BLE001 — reported to every rank below
+            gen, error = None, f"rank {self._mesh.rank}: {traceback.format_exc()}"
+        errors = [e for e in self._mesh.all_gather_object(error) if e is not None]
+        return (None if errors else gen), errors
+
+    def _prepared(self, gen, errors) -> _Generation:
+        if errors:
+            raise RuntimeError(f"generation {self._generation.generation} keeps serving: preparing the next "
+                               f"failed on {len(errors)} rank(s):\n" + "\n".join(errors))
+        return gen
+
+    def _refresh(self, controller) -> tuple:
+        """Leader: one refresh cycle of a mesh ``RefreshController`` on
+        every rank, then the commit.  Returns ``(generation, what the
+        cycle made, the rows it covers)``."""
+        with self._swap_lock:
+            with self._commands.lock:
+                gen_id = self._generation.generation + 1
+                rows = open_store(controller.store_path).num_transactions
+                self._commands.send(REFRESH, gen_id, rows=rows)
+                gen, errors, made = self._refresh_everywhere(controller, gen_id, rows)
+            self.commit_swap(self._prepared(gen, errors))
+        return gen_id, made, rows
+
+    def _refresh_everywhere(self, controller, generation: int, rows: int) -> tuple:
+        """Every rank: check that each sees the store at the leader's
+        ``rows``, mine and compile (collective calls), then prepare."""
+        made = {}
+
+        def make():
+            try:
+                seen = open_store(controller.store_path).num_transactions
+            except (FileNotFoundError, ValueError) as e:
+                seen = f"{type(e).__name__}: {e}"
+            views = self._mesh.all_gather_object(seen)
+            if any(v != rows for v in views):
+                raise RuntimeError(f"the leader refreshes the store at {rows} rows; the ranks see {views}")
+            made["rulebook"], made["report"] = controller._mine_and_compile(open_store(controller.store_path))
+            return made["rulebook"]
+
+        gen, errors = self._prepare_everywhere(generation, make)
+        return gen, errors, made
+
+    def _attach(self, controller) -> None:
+        """A mesh ``RefreshController`` of this gateway: a follower runs its
+        cycles when the leader's commands say so."""
+        if not self.leader:
+            with self._attached:
+                self._refresher = controller
+                self._attached.notify_all()
+
+    def _follow(self) -> None:
+        """Follower: consume the leader's commands, in order, until STOP."""
+        try:
+            if self.device.type == "cuda":   # the current card is a thread's own
+                torch.cuda.set_device(self.device)
+            while True:
+                op, generation, bucket, top_k, rows, sent_s, b = self._commands.recv()
+                if op == BATCH:
+                    self.mesh_timing["broadcast_s"] += sent_s
+                    self._match(b, self._held[generation], top_k)
+                elif op == PREPARE:
+                    host = self._mesh.broadcast_object()
+                    gen, _ = self._prepare_everywhere(generation, lambda: host)
+                    if gen is not None:
+                        self._held[generation] = gen
+                elif op == COMMIT:
+                    self._generation = self._held[generation]
+                    self._held = {generation: self._generation}
+                elif op == REFRESH:
+                    with self._attached:
+                        if not self._attached.wait_for(lambda: self._refresher is not None,
+                                                       timeout=self._mesh.timeout_s):
+                            raise RuntimeError("the leader refreshes, but no RefreshController was "
+                                               "built on this rank")
+                    t0 = time.perf_counter()
+                    gen, errors, made = self._refresh_everywhere(self._refresher, generation, rows)
+                    if gen is not None:
+                        self._held[generation] = gen
+                    self._refresher._followed(generation, errors, made, rows, time.perf_counter() - t0)
+                elif op == STOP:
+                    return
+        except BaseException as e:  # noqa: BLE001 — close() re-raises it
+            self._follow_error = e
 
     def _dispatch(self, group: list) -> None:
         """Batcher callback: one coalesced same-top_k group -> responses.
 
         The generation reference is read ONCE per dispatch — the whole batch
         is answered by a single rulebook, so responses can never mix
-        generations within a batch."""
-        gen = self._generation
+        generations within a batch.  On a mesh it is read under the command
+        lock, and the batch's command names it to the followers."""
         k = group[0].top_k
         t_drain = time.perf_counter()
-        bucket = pow2_bucket(len(group), self.max_batch)
+        bucket = pow2_bucket(len(group), self.max_batch, self._row_multiple)
         b = np.zeros((bucket, self._words), np.uint32)
         for i, r in enumerate(group):
             b[i] = r.packed
         t_asm = time.perf_counter()
-        idx, vals = self._match(b, gen, k)
+        if self._mesh is None:
+            gen = self._generation
+            idx, vals = self._match(b, gen, k)
+        else:
+            with self._commands.lock:
+                gen = self._generation
+                t_send = time.perf_counter()
+                self._commands.send(BATCH, gen.generation, bucket, k, len(group), b)
+                self.mesh_timing["broadcast_s"] += time.perf_counter() - t_send
+                idx, vals = self._match(b, gen, k)
         t_dev = time.perf_counter()
         tr = self._tracer
         if tr is not None:

@@ -11,12 +11,15 @@ promise that order).
 On a mesh (``launch.mesh``) the match step is the same Map/Reduce shape as
 mining, flipped: baskets split by rows over the data axes (the query "HDFS
 blocks") while the rulebook splits by rows over ``rule_axis``; each rank
-runs K2 on its rule block and its basket block, an all-reduce over the rule
-axis sums the blocks' partial (B, I) scores (``core.mapreduce``, a reduce
-over the *model* axis where mining reduces over *data*), each rank takes
-the top-k of its baskets, and every rank assembles the whole result.  The
-scores are not bit for bit the single device's: K2 sums each rule block in
-ascending rule order, and the all-reduce adds the blocks in the backend's.
+runs K2 on its rule block and its basket block, the rule axis sums the
+blocks' partial (B, I) scores (``core.mapreduce``, a reduce over the
+*model* axis where mining reduces over *data*), each rank takes the top-k
+of its baskets, and every rank assembles the whole result
+(:func:`match_batch`, which the mesh gateway runs too).  The blocks are
+added in rule-block order (``mapreduce.ordered_sum``), so a basket's
+scores are the same bits whatever batch it rides in.  They are not bit for
+bit the single device's: K2 sums each rule block in ascending rule order
+from zero, where one device carries one sum through all the rules.
 
 ``recommend_python`` is the per-basket pure-Python engine — the oracle for
 tests and the baseline for the batched engine.
@@ -30,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import itemsets as enc
-from repro_torch.core.mapreduce import MapReduceJob, gather_rows, mapreduce, shard_rows
+from repro_torch.core.mapreduce import MapReduceJob, gather_blocks, mapreduce, shard_rows
 from repro_torch.kernels import ops as kops
 from repro_torch.launch.mesh import mesh_device
 from repro_torch.kernels import ref as kref
@@ -61,19 +64,21 @@ def pack_baskets(baskets, num_items: int) -> np.ndarray:
     return enc.pack_bits(enc.dense_from_lists(list(baskets), num_items))
 
 
-def make_match_step(*, impl: str = "auto", mesh=None, rule_axis: str = "model"):
+def make_match_step(*, impl: str = "auto", mesh=None, rule_axis: str = "model", on_map=None):
     """The batched match step
     ``fn(b_packed (B, W), ante, lens, cons, scores) -> (B, 32·W) float32``
     on the operands' device (``kernels.ops.rule_match``).  On a mesh the
     operands are this rank's basket and rule blocks, and the step sums the
-    rule blocks' scores over ``rule_axis``."""
+    rule blocks' scores over ``rule_axis`` in block order; ``on_map()``, if
+    given, runs between K2 and that sum (a timer's lap)."""
 
     def match_step(b, a, ln, c, s):
         return kops.rule_match(b, a, ln, c, s, impl=impl)
 
     if mesh is None:
         return match_step
-    return mapreduce(MapReduceJob(map_fn=match_step, reduce_axes=(rule_axis,)), mesh)
+    job = MapReduceJob(map_fn=match_step, reduce_axes=(rule_axis,), reduce_op="ordered_sum")
+    return mapreduce(job, mesh, on_map=on_map)
 
 
 def _to_device(blk: np.ndarray, device) -> torch.Tensor:
@@ -87,6 +92,35 @@ def _to_device(blk: np.ndarray, device) -> torch.Tensor:
 def _to_host(idx: torch.Tensor, vals: torch.Tensor, m: int):
     """The first ``m`` rows of a batch's top-k back to numpy (D2H)."""
     return idx.cpu().numpy()[:m], vals.cpu().numpy()[:m]
+
+
+def match_batch(step, blk: np.ndarray, rb: Rulebook, *, top_k: int, exclude_basket: bool, mesh=None,
+                data_axes: tuple = ("data",), lap=None):
+    """One padded batch of int32 basket words (host, (B, W)) through match
+    and top-k: ``(idx int32, vals float32)`` numpy arrays of all B rows.
+
+    On a mesh every rank calls it with the same batch: it takes its row
+    block over ``data_axes``, ``step`` (:func:`make_match_step` on the mesh)
+    matches it against its rule block and sums the rule blocks, it takes
+    the top-k of its rows, and one all-gather over the data axes hands
+    every rank the whole batch's.  ``lap(name)``, if given, is called after
+    the top-k ("topk") and after that gather ("gather")."""
+    if mesh is not None:
+        blk = shard_rows(blk, mesh, data_axes)
+    blk_dev = _to_device(blk, rb.device)
+    item_scores = step(blk_dev, rb.ante_packed, rb.ante_len, rb.cons_packed, rb.scores)
+    idx, vals = _topk_items(item_scores, blk_dev, top_k=top_k, exclude_basket=exclude_basket,
+                            num_items=rb.num_items)
+    if lap is not None:
+        lap("topk")
+    if mesh is None:
+        return _to_host(idx, vals, blk.shape[0])
+    # ids and the float bits of the scores travel as one int32 block
+    both = gather_blocks(torch.cat([idx, vals.view(torch.int32)], dim=1).cpu(), mesh, data_axes)
+    if lap is not None:
+        lap("gather")
+    both = both.numpy()
+    return both[:, :top_k].copy(), both[:, top_k:].view(np.float32).copy()
 
 
 def _topk_items(item_scores, b_packed, *, top_k: int, exclude_basket: bool, num_items: int):
@@ -162,17 +196,9 @@ def recommend(
         m = blk.shape[0]
         if m < batch_size:
             blk = np.pad(blk, ((0, batch_size - m), (0, 0)))
-        if mesh is not None:
-            blk = shard_rows(blk, mesh, data_axes)
-        blk_dev = _to_device(blk, rb.device)
-        item_scores = step(blk_dev, rb.ante_packed, rb.ante_len, rb.cons_packed, rb.scores)
-        idx, vals = _topk_items(
-            item_scores, blk_dev,
-            top_k=top_k, exclude_basket=exclude_basket, num_items=rb.num_items,
-        )
-        if mesh is not None:   # the baskets' blocks, whole on every rank
-            idx, vals = gather_rows(idx, mesh, data_axes), gather_rows(vals, mesh, data_axes)
-        items_out[start : start + m], scores_out[start : start + m] = _to_host(idx, vals, m)
+        idx, vals = match_batch(step, blk, rb, top_k=top_k, exclude_basket=exclude_basket, mesh=mesh,
+                                data_axes=data_axes)
+        items_out[start : start + m], scores_out[start : start + m] = idx[:m], vals[:m]
     return RecommendResult(items=items_out, scores=scores_out)
 
 

@@ -21,6 +21,18 @@ all converge to the same fixed point — serving generation covers store
 contents. ``handle_alert`` accepts SLO engine events (signal ``freshness``)
 and kicks an immediate cycle, turning a burning freshness budget into a
 refresh instead of a page.
+
+On a mesh (``mesh=``, one process a rank) every rank builds the controller
+beside its rank of a mesh :class:`~repro_torch.serving.gateway.Gateway`.
+The leader's (rank 0's) poller decides when to refresh, by the same
+watermark hysteresis, and its refresh goes out as a command in the
+gateway's stream: every rank then runs the delta mine (or the full one) on
+the mesh — collective calls — compiles the same rulebook (compiling is
+deterministic) and places its block, and the leader commits once every
+rank holds it.  A cycle that fails on any rank fails on every rank, and
+the previous generation keeps serving.  ``refresh_now()`` is a collective
+call: on the leader it drives a cycle, on a follower it waits for the
+cycle the leader drives next and returns its generation.
 """
 
 from __future__ import annotations
@@ -32,7 +44,7 @@ from repro_torch.core import apriori as ap
 from repro_torch.core import incremental as inc
 from repro_torch.core import streaming as st
 from repro_torch.data.store import open_store
-from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import mesh_device
 from repro_torch.serving.metrics import _RegistryMetrics
 from repro_torch.serving.rulebook import compile_rulebook
 
@@ -81,7 +93,9 @@ class RefreshController:
     ``mode="full"`` always re-mines with the level-wise streamed driver.
     Both mine on ``device`` from the controller's own thread, beside the
     target's dispatch workers; the swap places the new rulebook there too
-    (:meth:`Gateway.prepare_swap`).
+    (:meth:`Gateway.prepare_swap`).  With ``mesh`` the target is this
+    rank's mesh ``Gateway`` (the module docstring), and a cycle holds the
+    gateway's command stream: the mesh serves no batch while it mines.
     ``min_append_rows`` is the watermark hysteresis: a refresh fires once at
     least that many rows sit above the last swapped watermark.
     """
@@ -92,6 +106,7 @@ class RefreshController:
         target,
         cfg: ap.AprioriConfig = ap.AprioriConfig(),
         *,
+        mesh=None,
         device="cuda",
         chunk_rows: int = 8192,
         prefetch: int = 2,
@@ -113,7 +128,11 @@ class RefreshController:
         self.store_path = store_path
         self.target = target
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh_device(device, mesh)
+        self._on_mesh = mesh is not None and mesh.size > 1
+        if self._on_mesh and getattr(target, "_mesh", None) is not mesh:
+            raise ValueError("a RefreshController on a mesh refreshes a Gateway built on the same mesh")
         self.chunk_rows = chunk_rows
         self.prefetch = prefetch
         self.min_confidence = min_confidence
@@ -148,11 +167,22 @@ class RefreshController:
         self._stop = threading.Event()
         self._alert_kick = False
         self._thread: threading.Thread | None = None
+        # a follower: the outcome of each cycle the leader drove (generation
+        # or error), and how many of them refresh_now() has handed out
+        self._outcomes: list = []
+        self._handed = 0
+        self._cycled = threading.Condition()
+        if self._on_mesh:
+            target._attach(self)
 
     # ------------------------------------------------------------ lifecycle --
     def start(self) -> "RefreshController":
+        """Start the poller (on a mesh, the leader's; a follower's cycles
+        come in the gateway's command stream)."""
         if self._thread is not None:
             raise RuntimeError("RefreshController already started")
+        if self._on_mesh and self.mesh.rank != 0:
+            return self
         self._stop.clear()
         self._thread = threading.Thread(
             target=self._run, name="refresh-controller", daemon=True
@@ -213,62 +243,104 @@ class RefreshController:
     def refresh_now(self) -> int:
         """Run one synchronous refresh cycle; returns the new serving
         generation. Raises (and counts a failure) if mining/swap fail —
-        the previous generation keeps serving either way."""
+        the previous generation keeps serving either way.  On a mesh it is
+        a collective call (the module docstring)."""
+        if self._on_mesh and self.mesh.rank != 0:
+            return self._next_followed()
         with self._lock:
             t0 = time.perf_counter()
             try:
-                store = open_store(self.store_path)
-                if self.mode == "full":
-                    res = st.mine_streamed(
-                        store, self.cfg, device=self.device,
-                        chunk_rows=self.chunk_rows, prefetch=self.prefetch,
-                    )
-                    report = inc.DeltaReport(
-                        mode="full", reason="mode_full",
-                        base_rows=0, delta_rows=store.num_transactions,
-                        base_shards=0, delta_shards=store.num_partitions,
-                    )
+                if self._on_mesh:
+                    generation, made, rows = self.target._refresh(self)
+                    rulebook, report = made["rulebook"], made["report"]
                 else:
-                    res, report = inc.mine_delta(
-                        store, self.cfg, self.device,
-                        chunk_rows=self.chunk_rows, prefetch=self.prefetch,
-                        fault=self.fault, checkpoint=self.checkpoint,
-                        resume=True,
-                        max_delta_fraction=self.max_delta_fraction,
-                        max_drift_fraction=self.max_drift_fraction,
-                    )
-                rulebook = compile_rulebook(
-                    res,
-                    min_confidence=self.min_confidence,
-                    score=self.score,
-                    max_rules=self.max_rules,
-                    num_items=store.num_items,
-                )
-                generation = self.target.hot_swap(rulebook)
-                self.watermark = store.num_transactions
+                    store = open_store(self.store_path)
+                    rulebook, report = self._mine_and_compile(store)
+                    generation, rows = self.target.hot_swap(rulebook), store.num_transactions
             except BaseException as e:
                 self.last_error = e
                 self.metrics.record_failure()
                 raise
-            seconds = time.perf_counter() - t0
-            self.metrics.record_cycle(
-                report.mode, seconds,
-                rows=report.delta_rows, novel=report.novel_candidates,
+            return self._record(generation, rulebook, report, rows, time.perf_counter() - t0)
+
+    def _mine_and_compile(self, store):
+        """The cycle's mine (on a mesh, a collective call) and compile."""
+        if self.mode == "full":
+            res = st.mine_streamed(
+                store, self.cfg, device=self.device, mesh=self.mesh,
+                chunk_rows=self.chunk_rows, prefetch=self.prefetch,
             )
-            record = {
-                "generation": generation,
-                "mode": report.mode,
-                "reason": report.reason,
-                "seconds": seconds,
-                "delta_rows": report.delta_rows,
-                "novel_candidates": report.novel_candidates,
-                "watermark": self.watermark,
-                "rules": int(rulebook.num_rules),
-            }
-            self.history.append(record)
-            if self.on_refresh is not None:
-                self.on_refresh(record)
-            return generation
+            report = inc.DeltaReport(
+                mode="full", reason="mode_full",
+                base_rows=0, delta_rows=store.num_transactions,
+                base_shards=0, delta_shards=store.num_partitions,
+            )
+        else:
+            res, report = inc.mine_delta(
+                store, self.cfg, self.device,
+                chunk_rows=self.chunk_rows, prefetch=self.prefetch,
+                fault=self.fault, checkpoint=self.checkpoint,
+                resume=True,
+                max_delta_fraction=self.max_delta_fraction,
+                max_drift_fraction=self.max_drift_fraction,
+                mesh=self.mesh,
+            )
+        rulebook = compile_rulebook(
+            res,
+            min_confidence=self.min_confidence,
+            score=self.score,
+            max_rules=self.max_rules,
+            num_items=store.num_items,
+        )
+        return rulebook, report
+
+    def _record(self, generation: int, rulebook, report, rows: int, seconds: float) -> int:
+        self.watermark = rows
+        self.metrics.record_cycle(
+            report.mode, seconds,
+            rows=report.delta_rows, novel=report.novel_candidates,
+        )
+        record = {
+            "generation": generation,
+            "mode": report.mode,
+            "reason": report.reason,
+            "seconds": seconds,
+            "delta_rows": report.delta_rows,
+            "novel_candidates": report.novel_candidates,
+            "watermark": self.watermark,
+            "rules": int(rulebook.num_rules),
+        }
+        self.history.append(record)
+        if self.on_refresh is not None:
+            self.on_refresh(record)
+        return generation
+
+    def _followed(self, generation: int, errors: list, made: dict, rows: int, seconds: float) -> None:
+        """Follower: the gateway ran a cycle the leader drove."""
+        if errors:
+            outcome = RuntimeError(f"refresh to generation {generation} failed:\n" + "\n".join(errors))
+            self.last_error = outcome
+            self.metrics.record_failure()
+        else:
+            outcome = self._record(generation, made["rulebook"], made["report"], rows, seconds)
+        with self._cycled:
+            self._outcomes.append(outcome)
+            self._cycled.notify_all()
+
+    def _next_followed(self) -> int:
+        """Follower: the next cycle the leader drives, once it has run here."""
+        with self._cycled:
+            self._handed += 1
+            want = self._handed
+            while len(self._outcomes) < want:
+                if not self.target._follower.is_alive():
+                    raise RuntimeError("the gateway's follow loop ended before the refresh") from \
+                        self.target._follow_error
+                self._cycled.wait(0.1)
+            outcome = self._outcomes[want - 1]
+        if isinstance(outcome, BaseException):
+            raise outcome
+        return outcome
 
     def stats(self) -> dict:
         return {

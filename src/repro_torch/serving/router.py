@@ -433,6 +433,10 @@ class Router:
                     self.metrics.record_swap_prepare_failure()
                     if rep.state == HEALTHY:
                         rep.state = SUSPECT
+                    # stamped, as a kill is: until the commit below moves the
+                    # target, the stale replica's generation still equals it,
+                    # and the monitor would re-admit it at once
+                    rep.last_failure_t = time.perf_counter()
             if not prepared:
                 if swap_sp is not None:
                     swap_sp.end(outcome="no_replica_prepared")
@@ -787,6 +791,7 @@ class Router:
                     self.metrics.record_swap_prepare_failure()
                     if rep.state == HEALTHY:
                         rep.state = SUSPECT
+                    rep.last_failure_t = time.perf_counter()
         finally:
             self._swap_lock.release()
 

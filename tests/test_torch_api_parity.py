@@ -4,8 +4,14 @@ its satellites add.  ``core.rules.extract_rules_vectorized``,
 (byte-equal) and ``kernels.blocked.support_count_blocked`` give the JAX
 functions' results; ``repro_torch.data`` and ``repro_torch.kernels`` re-export
 the names ``repro.data`` and ``repro.kernels`` do, each behaving as the JAX
-one.  ``data.pipeline.batch_spec`` (a JAX ``PartitionSpec``) has no
-counterpart: ``core.mapreduce.shard_rows`` takes a rank's row block."""
+one.  ``core.candidates.lex_sort_rows`` and ``core.itemsets.pad_packed``
+equal JAX's on random inputs and on empty ones.  Four names have no
+counterpart, and each test pins what does their work:
+``data.pipeline.batch_spec`` (a JAX ``PartitionSpec``: ``core.mapreduce.
+shard_rows`` takes a rank's row block), ``kernels.ops.resolve_impl`` (the
+tensors' device picks the route) and ``launch.mesh``'s ``make_auto_mesh`` /
+``make_host_mesh`` / ``make_production_mesh`` (``make_mesh`` builds a rank's
+mesh; ``host_mesh_shape`` / ``production_mesh_shape`` give their shapes)."""
 
 import ast
 import subprocess
@@ -22,12 +28,18 @@ import repro.data as jdata  # noqa: E402
 import repro.kernels as jkernels  # noqa: E402
 import repro_torch.data as tdata  # noqa: E402
 import repro_torch.kernels as tkernels  # noqa: E402
+from repro.core import candidates as jcand  # noqa: E402
+from repro.core import itemsets as jitems  # noqa: E402
 from repro.core import rules as jrules  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.launch import mesh as jmesh  # noqa: E402
 from repro.core.apriori import AprioriConfig as JCfg  # noqa: E402
 from repro.core.apriori import mine as jax_mine  # noqa: E402
 from repro.data import corpus as jcorpus  # noqa: E402
 from repro.data import synthetic as jsyn  # noqa: E402
 from repro.kernels import blocked as jblocked  # noqa: E402
+from repro_torch.core import candidates as tcand  # noqa: E402
+from repro_torch.core import itemsets as titems  # noqa: E402
 from repro_torch.core import rules as trules  # noqa: E402
 from repro_torch.core.apriori import AprioriConfig, mine  # noqa: E402
 from repro_torch.core.mapreduce import shard_rows  # noqa: E402
@@ -35,6 +47,8 @@ from repro_torch.data import corpus as tcorpus  # noqa: E402
 from repro_torch.data import pipeline as tpipe  # noqa: E402
 from repro_torch.data import synthetic as tsyn  # noqa: E402
 from repro_torch.kernels import blocked as tblocked  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch.mesh import MeshLayout  # noqa: E402
 
 from conftest import REPO_ROOT, random_problem, subprocess_env  # noqa: E402
@@ -133,3 +147,46 @@ def test_batch_spec_has_no_counterpart_shard_rows_does_its_work():
         lay = MeshLayout((3, 2), ("data", "model"), rank=rank)
         want = np.split(x, 3)[lay.coord("data")]
         np.testing.assert_array_equal(shard_rows(x, lay, ("data",)), want)
+
+
+@pytest.mark.parametrize("rows, cols, seed", [(0, 3, 0), (1, 2, 1), (50, 3, 2), (200, 4, 3)])
+def test_lex_sort_rows_equals_jax(rows, cols, seed):
+    a = np.random.default_rng(seed).integers(0, 6, size=(rows, cols)).astype(np.int32)
+    got, want = tcand.lex_sort_rows(a), jcand.lex_sort_rows(a)
+    assert got.dtype == want.dtype and got.shape == want.shape == a.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("rows, words, row_multiple, word_multiple", [
+    (0, 0, 4, 2), (0, 3, 8, 1), (7, 3, 1, 1), (7, 3, 4, 2), (16, 4, 8, 4), (5, 1, 3, 5)])
+def test_pad_packed_equals_jax(rows, words, row_multiple, word_multiple):
+    packed = np.random.default_rng(rows * 10 + words).integers(0, 2**32, size=(rows, words), dtype=np.uint32)
+    got = titems.pad_packed(packed, row_multiple, word_multiple)
+    want = jitems.pad_packed(packed, row_multiple, word_multiple)
+    assert got.dtype == want.dtype == np.uint32 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_resolve_impl_has_no_counterpart_the_tensors_device_picks():
+    """JAX resolves ``"auto"`` by its backend; the port by where each
+    call's tensors live: CPU tensors take the plain version under
+    ``"auto"``, and ``"kernel"`` refuses them."""
+    assert hasattr(jops, "resolve_impl") and not hasattr(tops, "resolve_impl")
+    assert tops.IMPLS == ("auto", "kernel", "ref")
+    t, c, ln = (torch.from_numpy(x) for x in random_problem(60, 20, 30, seed=4))
+    np.testing.assert_array_equal(tops.support_count(t, c, ln, impl="auto").numpy(),
+                                  tops.support_count(t, c, ln, impl="ref").numpy())
+    with pytest.raises(RuntimeError):
+        tops.support_count(t, c, ln, impl="kernel")
+
+
+def test_mesh_factories_have_no_counterpart_make_mesh_and_the_shapes_do_their_work(monkeypatch):
+    names = ("make_auto_mesh", "make_host_mesh", "make_production_mesh")
+    assert all(hasattr(jmesh, n) and not hasattr(tmesh, n) for n in names)
+    # the shapes the JAX factories would build (256 / 512 devices cannot be
+    # faked here): what they hand make_auto_mesh
+    monkeypatch.setattr(jmesh, "make_auto_mesh", lambda shape, axes: (tuple(shape), tuple(axes)))
+    for multi_pod in (False, True):
+        assert tmesh.production_mesh_shape(multi_pod=multi_pod) == jmesh.make_production_mesh(multi_pod=multi_pod)
+    assert tmesh.host_mesh_shape() == jmesh.make_host_mesh()
+    assert tmesh.host_mesh_shape((1, 4), ("data", "model")) == jmesh.make_host_mesh((1, 4), ("data", "model"))

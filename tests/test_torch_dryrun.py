@@ -2,11 +2,11 @@
 against ``python -m repro.launch.mine_dryrun --n 65536 --k 4096``.  The
 variants and keys are the JAX package's; ``paper_1d`` and ``ours_2d`` flops
 per rank equal JAX's per device exactly; ``ours_2d_blocked`` (slices, no
-padding row) equals the port's ``ours_2d``; the collective is what the
-port's mesh engine sends, one all-reduce of the whole (K,) count vector
-(16,384 bytes at K = 4,096 in both variants, where JAX's ``ours_2d``
-all-gather sends 1,024).  At the default shapes the terms are the H100 SXM
-data sheet's."""
+padding row) equals the port's ``ours_2d``; the collective bytes equal
+JAX's: one all-reduce of the rank's counts over the data axes, the whole
+(K,) vector on ``paper_1d`` (16,384 bytes at K = 4,096) and the rank's K/16
+block on ``ours_2d`` (1,024 bytes).  At the default shapes the terms are
+the H100 SXM data sheet's."""
 
 import json
 import subprocess
@@ -57,12 +57,12 @@ def test_blocked_flops_equal_ours_2d_without_padding(jax_recs, port_recs):
 
 
 def test_collective_bytes_are_what_the_port_engine_sends(jax_recs, port_recs):
-    for v in port_recs:
-        assert port_recs[v]["coll_per_dev"] == K * 4 == 16384
-    assert jax_recs["paper_1d"]["coll_per_dev"] == 16384
-    assert jax_recs["ours_2d"]["coll_per_dev"] == K // 16 * 4   # all-gather of the model block
+    assert port_recs["paper_1d"]["coll_per_dev"] == jax_recs["paper_1d"]["coll_per_dev"] == K * 4 == 16384
+    for v in ("ours_2d", "ours_2d_blocked"):
+        # the rank's model block, reduced over the data axes only
+        assert port_recs[v]["coll_per_dev"] == jax_recs["ours_2d"]["coll_per_dev"] == K // 16 * 4 == 1024
     # every group of the 16 x 16 layout crosses nodes: one NDR port, 50 GB/s
-    assert port_recs["ours_2d"]["collective_s"] == 16384 / 50e9
+    assert port_recs["ours_2d"]["collective_s"] == 1024 / 50e9
 
 
 def test_default_shapes_on_the_sxm_data_sheet():
@@ -71,7 +71,8 @@ def test_default_shapes_on_the_sxm_data_sheet():
     for r in recs.values():
         assert r["flops_per_dev"] == flops
         assert r["compute_s"] == pytest.approx(flops / 989e12) and abs(r["compute_s"] - 1.11e-3) < 0.01e-3
-        assert r["coll_per_dev"] == 65536 * 4
+    assert recs["paper_1d"]["coll_per_dev"] == 65536 * 4
+    assert recs["ours_2d"]["coll_per_dev"] == recs["ours_2d_blocked"]["coll_per_dev"] == 65536 // 16 * 4 == 16384
     assert recs["ours_2d_blocked"]["temp_gb_per_dev"] < recs["ours_2d"]["temp_gb_per_dev"]
     pcie = mine_dryrun.run("ours_2d", part="pcie")
     assert pcie["compute_s"] == pytest.approx(flops / 756e12)

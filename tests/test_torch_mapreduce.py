@@ -7,7 +7,10 @@ functions in ``torch_mesh_ranks.py``).  Every spawn has a deadline well
 under 120 s.  The mesh mines must be dict-identical to the JAX package's
 single-device ``mine`` and to the port's ``mesh=None``; the mine CLI on a
 mesh prints the JAX CLI's last line; a rank that raises, hangs or dies fails
-the spawn within its deadline and leaves no process behind.
+the spawn within its deadline and leaves no process behind.  The 2-D
+count step's only collective is an all-reduce of the rank's Kp/M block on
+its data group, as the JAX package's step with ``out_specs=P("model")``
+sends; the level loop assembles the blocks.
 """
 
 import json
@@ -29,7 +32,7 @@ from repro.data.synthetic import QuestConfig, gen_transactions  # noqa: E402
 from repro_torch.core import son as tson  # noqa: E402
 from repro_torch.core.apriori import AprioriConfig, mine  # noqa: E402
 from repro_torch.core.mapreduce import pad_rows_to_shards  # noqa: E402
-from repro_torch.launch.mesh import RankFailed, rank_device, spawn  # noqa: E402
+from repro_torch.launch.mesh import MeshLayout, RankFailed, rank_device, spawn  # noqa: E402
 
 DEADLINE_S = 60.0
 
@@ -224,3 +227,27 @@ def test_core_reexports_what_the_jax_core_does_without_cuda_state():
             if name.endswith(".py"):
                 text = open(os.path.join(root, name)).read()
                 assert not pattern.search(text), f"{name} imports a shadowed submodule by name"
+
+
+def test_2d_count_step_reduces_its_block_over_the_data_group_only(quest_db):
+    """On a (2, 2) mesh split over ``model_axis`` the step sends one
+    all-reduce of Kp/2 int32 on its data group ((0, 2) or (1, 3)) and
+    returns its model block of the counts; ``_count_level`` still returns
+    every count on every rank, equal to the single device's."""
+    from repro_torch.core import apriori
+    from repro_torch.core.candidates import generate_candidates
+
+    db, _ = quest_db
+    cfg = AprioriConfig(representation="packed")
+    cands = generate_candidates(np.arange(db.shape[1], dtype=np.int32)[:, None])
+    mesh_cfg = AprioriConfig(representation="packed", model_axis="model")
+    kp = apriori._pad_bucket(cands.shape[0], apriori._candidate_quantum(mesh_cfg, MeshLayout((2, 2), ("data", "model"))))
+    t = apriori.place_db(db, cfg, "cpu")
+    c, ln = apriori._place_candidates(cands, kp, db.shape[1], cfg, "cpu")
+    whole = apriori.make_count_step(cfg)(t, c, ln).numpy()
+    assert kp % 2 == 0 and kp > cands.shape[0]
+    for rank, got in enumerate(_spawn(ranks.count_step_collectives, (2, 2), ("data", "model"), db, kp)):
+        m = got["model"]
+        assert got["step_sent"] == [(kp // 2, (m, m + 2))]
+        np.testing.assert_array_equal(got["block"], whole[m * kp // 2 : (m + 1) * kp // 2])
+        np.testing.assert_array_equal(got["counts"], whole[: cands.shape[0]])

@@ -69,7 +69,7 @@ def test_support_count_flops_equal_the_hand_count():
 
 
 @pytest.mark.parametrize("shape, model_axis, want_ranks", [
-    ((2, 2), "model", (0, 1, 2, 3)),     # split output: one all-reduce over data ∪ model
+    ((2, 2), "model", (0, 2)),           # split output: its block of 256, over rank 0's data group
     ((2, 2), None, (0, 2)),              # rank 0's data group only
     ((4, 1), "model", (0, 1, 2, 3)),
 ])
@@ -82,7 +82,7 @@ def test_mesh_step_collective_recorded_not_run(shape, model_axis, want_ranks):
                             meta((kb,), torch.int32))
     assert c.flops == 2 * 300 * 40 * kb
     assert c.collective_counts == {"all-reduce": 1}
-    assert c.collective_bytes == c.collective_by_type["all-reduce"] == 512 * 4
+    assert c.collective_bytes == c.collective_by_type["all-reduce"] == kb * 4
     assert c.collective_groups == [want_ranks]
     assert not dist.is_initialized()
 

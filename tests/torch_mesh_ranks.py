@@ -235,3 +235,190 @@ def card_kernels(mesh, db_path):
                                  launches=ops.launch_counts()["rule_match"] - before)
     out["k2-single"] = dict(items=single.items, scores=single.scores)
     return out
+
+
+# ------------------------------------------------------- the mesh gateway --
+def count_step_collectives(mesh, db, kp):
+    """The (2, 2) mesh's packed count step on its blocks: every all-reduce
+    it sends (elements, group ranks), and ``_count_level``'s whole counts."""
+    import torch.distributed as dist
+
+    from repro_torch.core import apriori
+    from repro_torch.core.candidates import generate_candidates
+
+    cfg = AprioriConfig(representation="packed", data_axes=("data",), model_axis="model")
+    cands = generate_candidates(np.arange(db.shape[1], dtype=np.int32)[:, None])
+    t = apriori.place_db(db, cfg, "cpu", mesh=mesh)
+    c, ln = apriori._place_candidates(cands, kp, db.shape[1], cfg, "cpu", mesh)
+    sent, all_reduce = [], dist.all_reduce
+
+    def recorded(tensor, op=dist.ReduceOp.SUM, group=None, async_op=False):
+        sent.append((tensor.numel(), tuple(dist.get_process_group_ranks(group))))
+        return all_reduce(tensor, op=op, group=group, async_op=async_op)
+
+    dist.all_reduce = recorded
+    try:
+        block = apriori.make_count_step(cfg, mesh)(t, c, ln)
+        step_sent = list(sent)
+        counts = apriori._count_level(apriori.make_count_step(cfg, mesh), t, cands, db.shape[1], cfg, mesh)
+    finally:
+        dist.all_reduce = all_reduce
+    return dict(block=block.numpy(), step_sent=step_sent, counts=counts, model=mesh.coord("model"))
+
+
+def _drive(gw, baskets, clients, mid=None):
+    """``clients`` closed-loop threads submit every basket (a dense row) once,
+    one a request, as its item ids; ``mid()`` runs once half of them are
+    answered.  Returns each basket's response (None where it failed) and
+    the failures."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    out, failed = [None] * len(baskets), []
+
+    def client(indices):
+        for i in indices:
+            try:
+                out[i] = gw.submit(np.flatnonzero(baskets[i]).tolist()).result(60)
+            except Exception as e:  # noqa: BLE001 — counted as a drop
+                failed.append(repr(e))
+
+    half = len(baskets) // 2 if mid is not None else len(baskets)
+    with ThreadPoolExecutor(max_workers=clients) as pool:
+        for f in [pool.submit(client, range(c, half, clients)) for c in range(clients)]:
+            f.result()
+        if mid is not None:
+            mid()
+            for f in [pool.submit(client, range(half + c, len(baskets), clients)) for c in range(clients)]:
+                f.result()
+    return out, failed
+
+
+def _answered(log):
+    """Within ``with``: ``Gateway._match`` of this process logs the
+    generation and bucket of every batch this rank answers."""
+    from repro_torch.serving.gateway import Gateway
+
+    match = Gateway._match
+
+    def logged(self, b, gen, top_k):
+        log.append((gen.generation, int(b.shape[0])))
+        return match(self, b, gen, top_k)
+
+    return match, logged
+
+
+def mesh_gateway(mesh, rb0, rb1, baskets, store_path, cfg, top_k, max_batch, clients):
+    """One rank of the mesh gateway: 90 baskets from ``clients`` threads
+    on rank 0 with a hot swap to ``rb1`` at half load; then ``refresh_now``
+    on every rank twice: under a config every rank refuses, then a delta
+    mine of the rows appended to the store; then the baskets again, and one
+    alone.  Every rank logs the batches it
+    answered; after ``close()`` every rank runs the mesh ``recommend`` of
+    each generation at each bucket rank 0 answered with."""
+    from repro_torch.serving import refresh as refresh_mod
+    from repro_torch.serving.gateway import Gateway
+    from repro_torch.serving.refresh import RefreshController
+
+    torch.set_num_threads(1)
+    log, made = [], []
+    compile_rulebook = refresh_mod.compile_rulebook
+
+    def captured(res, **kw):
+        rb = compile_rulebook(res, **kw)
+        made.append((res, rb))
+        return rb
+
+    match, logged = _answered(log)
+    Gateway._match, refresh_mod.compile_rulebook = logged, captured
+    try:
+        gw = Gateway(rb0, mesh=mesh, device="cpu", top_k=top_k, max_batch=max_batch, warmup="ladder",
+                     max_wait_ms=2.0)
+        ctl = RefreshController(store_path, gw, cfg, mesh=mesh, device="cpu", min_confidence=0.4,
+                                chunk_rows=64)
+        out = dict(rank=mesh.rank, ladder=gw.ladder())
+
+        def refresh_twice():
+            ctl.cfg = dataclasses.replace(cfg, representation="bitmap")   # every rank fails alike
+            try:
+                ctl.refresh_now()
+            except RuntimeError as e:
+                out["failed_refresh"] = str(e)
+            ctl.cfg = cfg
+            out["kept"] = gw.generation
+            out["refreshed"] = ctl.refresh_now()
+
+        if mesh.rank == 0:
+            out["load"] = _drive(gw, baskets, clients, mid=lambda: gw.hot_swap(rb1))
+            refresh_twice()
+            out["after"] = _drive(gw, baskets, clients)
+            gw.cache.evict_generation(gw.generation)   # basket 0 again, alone: bucket 2
+            out["alone"] = gw.query(np.flatnonzero(baskets[0]).tolist())
+        else:
+            try:
+                gw.submit(baskets[0])
+            except RuntimeError as e:
+                out["follower_submit"] = str(e)
+            refresh_twice()
+        gw.close()
+    finally:
+        Gateway._match, refresh_mod.compile_rulebook = match, compile_rulebook
+    out["answered"], out["history"], out["failures"] = log, ctl.history, ctl.metrics.failures
+    res2, rb2 = made[-1]
+    out["result"] = res2.as_dict()
+    responses = (out["load"][0] + out["after"][0] + [out["alone"]]) if mesh.rank == 0 else None
+    keys = mesh.broadcast_object(sorted({(r.generation, r.bucket) for r in responses}) if responses else None)
+    rbs = {0: rb0, 1: rb1, 2: rb2}
+    refs = {key: recommend(rbs[key[0]], baskets, top_k=top_k, batch_size=key[1], device="cpu", mesh=mesh)
+            for key in keys}
+    out["refs"] = {key: (r.items, r.scores) for key, r in refs.items()}
+    out["rb2"] = rb2
+    return out
+
+
+def mesh_gateway_idle(mesh, rb, baskets, timeout_s, idle_s):
+    """A gateway on a mesh whose groups time out after ``timeout_s``, idle
+    for ``idle_s``, then serving ``baskets``; each response with the mesh
+    ``recommend`` of its bucket."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.serving.gateway import Gateway
+
+    torch.set_num_threads(1)
+    short = Mesh(tuple(mesh.shape.values()), mesh.axes, mesh.device, timeout_s=timeout_s)
+    gw = Gateway(rb, mesh=short, device="cpu", top_k=5, max_batch=8)
+    got = None
+    if short.rank == 0:
+        time.sleep(idle_s)
+        got, failed = _drive(gw, baskets, 2)
+        assert not failed, failed
+    gw.close()
+    buckets = short.broadcast_object(sorted({r.bucket for r in got}) if got else None)
+    refs = {b: recommend(rb, baskets, top_k=5, batch_size=b, device="cpu", mesh=short) for b in buckets}
+    return dict(got=got, refs={b: (r.items, r.scores) for b, r in refs.items()}, timeout_s=short.timeout_s)
+
+
+def mesh_gateway_dies(mesh, rb, baskets, pid_dir):
+    """Rank 0 serves a steady load; the follower of the highest rank exits
+    without a word once the load runs."""
+    from repro_torch.serving.gateway import Gateway
+
+    torch.set_num_threads(1)
+    with open(os.path.join(pid_dir, str(mesh.rank)), "w") as f:
+        f.write(str(os.getpid()))
+    gw = Gateway(rb, mesh=mesh, device="cpu", top_k=5, max_batch=8)
+    if mesh.rank == mesh.size - 1:
+        time.sleep(1.0)
+        os._exit(3)
+    if mesh.rank == 0:
+        while True:
+            _drive(gw, baskets, 2)
+    gw.close()
+
+
+def one_rank_gateway(mesh, rb, baskets):
+    """A (1, 1) mesh: the single-device gateway, answering ``baskets``."""
+    from repro_torch.serving.gateway import Gateway
+
+    gw = Gateway(rb, mesh=mesh, device="cpu", top_k=5, max_batch=8)
+    got, failed = _drive(gw, baskets, 2)
+    gw.close()
+    return dict(single=gw._mesh is None and gw._commands is None, got=got, failed=failed)
