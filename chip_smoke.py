@@ -66,11 +66,13 @@ each with its own CUDA context, every rank's result checked:
   serving the store's first 4,096 rows from 16 clients with a hot swap to
   the 21,334-rule rulebook at half load, then 5,000 rows appended and
   ``RefreshController(mesh=).refresh_now()`` on every rank (a delta mine,
-  dict-identical to ``[delta]``'s), then the rows again: zero drops,
-  generations [0, 1, 2], every response bit for bit its generation's mesh
-  ``recommend`` and within rtol 1e-5, atol 1e-6 of its single-device one;
-  K2 at each rank's blocks of a full bucket bit for bit
-  ``rule_match_ordered``;
+  dict-identical to ``[delta]``'s) while the 16 clients go on sending the
+  rows in passes of 4,096, until a pass starts after the refresh has
+  ended: zero drops, generations [0, 1, 2], requests answered inside the
+  refresh's window (its qps and p99 printed), every response bit for bit
+  its generation's mesh ``recommend`` and within rtol 1e-5, atol 1e-6 of
+  its single-device one; K2 at each rank's blocks of a full bucket bit for
+  bit ``rule_match_ordered``;
 * ``[mesh-cli]``: the mine CLI under ``torchrun`` on a 2 x 2 mesh prints the
   single-device CLI's last line;
 * ``[mesh-nccl]``: ``[mesh]`` over NCCL, one rank a card, only where the
@@ -1067,11 +1069,12 @@ LADDER = (1, 2, 4, 8, 16, 32, 64)   # Gateway(max_batch=64, warmup="ladder")
 APPEND_FRACTION = 0.05    # 5% of the store's rows, as the serve CLI appends
 
 
-def drive_clients(submit, n, mid=None):
+def drive_clients(submit, n, mid=None, done=None):
     """``n`` single-basket requests from ``CLIENTS`` closed-loop threads
     (client c sends requests c, c + 16, ...); ``mid()`` runs between the
-    first and the second half.  Returns (responses by request, counts of
-    each typed failure, wall s)."""
+    first and the second half; ``done[i]``, if given, gets the host time
+    request i was answered.  Returns (responses by request, counts of each
+    typed failure, wall s)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.serving import AdmissionRejected, DeadlineExceeded, WorkerCrashed
@@ -1085,6 +1088,8 @@ def drive_clients(submit, n, mid=None):
         for i in indices:
             try:
                 out[i] = submit(i).result(timeout=120)
+                if done is not None:
+                    done[i] = time.perf_counter()
             except tuple(kinds) as e:
                 with lock:
                     failed[kinds[type(e)]] += 1
@@ -1978,10 +1983,13 @@ def mesh_gateway_rank(mesh, paths):
     43,518-rule rulebook and ``RefreshController(mesh=)`` in delta mode on
     a copy of the store whose count cache covers its 100,000 rows.  Rank 0
     drives 16 clients over the store's first 4,096 rows with a hot swap to
-    the 21,334-rule rulebook at half load, appends 5,000 rows, refreshes,
-    and drives them again; the others follow, and call ``refresh_now`` too.
-    The launch counts are set to 0 before the gateway is built and read
-    after its close.  Then, as references: every rank's mesh ``recommend``
+    the 21,334-rule rulebook at half load, appends 5,000 rows, and
+    refreshes in a thread while the clients send the rows again, pass after
+    pass, until a pass starts after the refresh has ended; the others
+    follow, and call ``refresh_now`` too.  Each rank times its delta mine
+    and counts K1 and K2 across it (the mine runs in a thread of its own,
+    beside serving).  The launch counts are set to 0 before the gateway is
+    built and read after its close.  Then, as references: every rank's mesh ``recommend``
     of each generation, and K2 at this rank's blocks of a full bucket
     against its plain versions."""
     ready = _rank_setup(mesh)
@@ -2003,12 +2011,23 @@ def mesh_gateway_rank(mesh, paths):
     def captured(res, **kw):   # the refresh's result and rulebook, as references
         rb = compile_rulebook(res, **kw)
         made.append((res, rb))
+        out["compiled_at"] = time.perf_counter()
         return rb
+
+    mine_delta = refresh_mod.inc.mine_delta
+
+    def timed_mine(*args, **kwargs):   # the refresh's mine, with the launches across it
+        before, t = ops.launch_counts(), time.perf_counter()
+        res = mine_delta(*args, **kwargs)
+        after, t1 = ops.launch_counts(), time.perf_counter()
+        out["mine"] = dict(s=t1 - t, span=(t, t1), k1=after["support_count_packed"] - before["support_count_packed"],
+                           k2=after["rule_match"] - before["rule_match"])
+        return res
 
     cfg = AprioriConfig(min_support=0.002, max_k=4, representation="packed", data_axes=("data",),
                         model_axis="model")
     out = dict(rank=mesh.rank, ready=ready)
-    refresh_mod.compile_rulebook = captured
+    refresh_mod.compile_rulebook, refresh_mod.inc.mine_delta = captured, timed_mine
     ops.reset_launch_counts()
     try:
         t0 = time.perf_counter()
@@ -2028,16 +2047,42 @@ def mesh_gateway_rank(mesh, paths):
                 out["appended"] = int(APPEND_FRACTION * open_store(paths["refresh"]).num_transactions)
                 append_rows(paths["refresh"], out["appended"], seed=1)
                 out["append_s"] = time.perf_counter() - t
-                t = time.perf_counter()
-                out["refreshed"] = ctl.refresh_now()
-                out["refresh_s"] = time.perf_counter() - t
-                loads.append(drive_clients(lambda i: gw.submit(packed[i]), REQUESTS))
+                box = {}
+
+                def refresh():
+                    box["t0"] = time.perf_counter()
+                    try:
+                        box["generation"] = ctl.refresh_now()
+                    except BaseException as e:  # noqa: BLE001 — raised below
+                        box["error"] = e
+                    box["t1"] = time.perf_counter()
+
+                refresher = threading.Thread(target=refresh, name="mesh-refresh")
+                refresher.start()
+                dones = [None]
+                while True:   # passes of the rows until one starts after the refresh has ended
+                    ended = not refresher.is_alive()
+                    gw.cache.evict_generation(gw.generation)   # each pass served by batches, not the cache
+                    dones.append(np.zeros(REQUESTS))
+                    loads.append(drive_clients(lambda i: gw.submit(packed[i]), REQUESTS, done=dones[-1]))
+                    if ended:
+                        break
+                refresher.join()
+                if "error" in box:
+                    raise box["error"]
+                out["refreshed"], out["refresh_s"] = box["generation"], box["t1"] - box["t0"]
+                # the refresh's window in its stages, on this rank's clock: the start
+                # (the command, the rows check), the mine, the compile, then the
+                # outcomes' exchange, the place and the commit
+                marks = [box["t0"], *out["mine"]["span"], out["compiled_at"], box["t1"]]
+                out["stages"] = list(zip(("start", "mine", "compile", "exchange, place and commit"), marks, marks[1:]))
                 stats = gw.stats()
                 out["stats"] = {k: stats[k] for k in ("batches", "batch_occupancy", "latency", "cache_hits")}
                 out["loads"] = [dict(items=np.stack([r.items for r in got]), scores=np.stack([r.scores for r in got]),
                                      gens=np.array([r.generation for r in got]),
-                                     buckets=np.array([r.bucket for r in got]), failed=failed, wall=wall)
-                                for got, failed, wall in loads]
+                                     buckets=np.array([r.bucket for r in got]), failed=failed, wall=wall,
+                                     latency=np.array([r.latency_s for r in got]), done=done)
+                                for (got, failed, wall), done in zip(loads, dones)]
             else:
                 t = time.perf_counter()
                 out["refreshed"] = ctl.refresh_now()
@@ -2045,7 +2090,7 @@ def mesh_gateway_rank(mesh, paths):
         finally:
             gw.close()
     finally:
-        refresh_mod.compile_rulebook = compile_rulebook
+        refresh_mod.compile_rulebook, refresh_mod.inc.mine_delta = compile_rulebook, mine_delta
     counts = ops.launch_counts()
     out.update(k2=counts["rule_match"], k1=counts["support_count_packed"], k3=counts["support_count"],
                timing=dict(gw.mesh_timing), history=ctl.history, ladder=gw.ladder())
@@ -2079,13 +2124,17 @@ def mesh_gateway_rank(mesh, paths):
     return out
 
 
-def mesh_gateway_phase(paths, want, want_by_gen, card):
+def mesh_gateway_phase(paths, want, want_by_gen, card, quiet_mine_s):
     """``[mesh-gateway]`` and ``[mesh-refresh]`` in one spawn of the (2, 2)
     mesh: zero drops, generations [0, 1, 2]; every response bit for bit its
     generation's mesh ``recommend`` and within rtol 1e-5, atol 1e-6 of its
     single-device ``recommend`` (items equal except at ties); the refresh
     on every rank delta mode, dict-identical to ``[delta]``'s mine_delta;
-    K2 a rank = 3 warm ladders + every batch, K1 > 0 in the refresh."""
+    K2 a rank = 3 warm ladders + every batch, K1 > 0 in the refresh; the
+    passes during the refresh answered by generations 1 and 2 and the last
+    by 2 alone, and some requests answered inside the refresh's window.
+    ``quiet_mine_s``: each rank's ``[mesh-stream]`` mine_delta of the same
+    rows, with nothing served beside it."""
     outs, setup_s, total_s = _spawn_mesh(mesh_gateway_rank, MESH, paths)
     lead = outs[0]
     want_by_gen = dict(want_by_gen)
@@ -2125,14 +2174,33 @@ def mesh_gateway_phase(paths, want, want_by_gen, card):
                 raise AssertionError(f"[mesh-gateway] load {n}: generation {g}'s items differ from its "
                                      "single-device recommend")
             gens.add(g)
-    if sorted(gens) != [0, 1, 2] or set(lead["loads"][1]["gens"].tolist()) != {2}:
-        raise AssertionError(f"[mesh-gateway] generations {sorted(gens)}")
+    passes = lead["loads"][1:]
+    if sorted(gens) != [0, 1, 2] or set(lead["loads"][0]["gens"].tolist()) != {0, 1} \
+            or any(not set(p["gens"].tolist()) <= {1, 2} for p in passes) or set(passes[-1]["gens"].tolist()) != {2}:
+        raise AssertionError(f"[mesh-gateway] generations {sorted(gens)}, by load "
+                             f"{[sorted(set(load['gens'].tolist())) for load in lead['loads']]}")
+    # [mesh-refresh]: the requests answered inside the refresh's window, and in each of its stages
+    done = np.concatenate([p["done"] for p in passes])
+    in_window = (done >= lead["stages"][0][1]) & (done <= lead["stages"][-1][2])
+    answered = int(in_window.sum())
+    if answered == 0:
+        raise AssertionError(f"[mesh-refresh] no request was answered inside the refresh's "
+                             f"{lead['refresh_s']:.3f} s window")
+    latency_ms = np.concatenate([p["latency"] for p in passes]) * 1e3
+    window_lat, window_gens = latency_ms[in_window], np.concatenate([p["gens"] for p in passes])[in_window]
+    stages = []
+    for name, a, z in lead["stages"]:
+        lat_s = latency_ms[(done >= a) & (done < z)]
+        stages.append(f"{name} {z - a:.3f} s: {lat_s.size} answered, {lat_s.size / (z - a):.0f} qps"
+                      + (f", p99 {np.percentile(lat_s, 99):.3f} ms" if lat_s.size else ""))
     lat = lead["stats"]["latency"]
     walls = [load["wall"] for load in lead["loads"]]
     t_spawn = max(o["ready"] for o in outs) - setup_s
     log(f"[mesh-gateway] (2, 2) over gloo on the one card: setup (spawn, CUDA contexts, rendezvous, groups) "
-        f"{setup_s:.3f} s, whole spawn {total_s:.3f} s; {2 * REQUESTS} requests from {CLIENTS} clients in two loads "
-        f"of {walls[0]:.3f} / {walls[1]:.3f} s = {REQUESTS / walls[0]:.0f} / {REQUESTS / walls[1]:.0f} qps; registry "
+        f"{setup_s:.3f} s, whole spawn {total_s:.3f} s; {len(walls) * REQUESTS} requests from {CLIENTS} clients: "
+        f"the first load {walls[0]:.3f} s = {REQUESTS / walls[0]:.0f} qps, then {len(passes)} passes during and "
+        f"after the refresh of {' / '.join(f'{w:.3f}' for w in walls[1:])} s = "
+        f"{' / '.join(f'{REQUESTS / w:.0f}' for w in walls[1:])} qps; registry "
         f"p50 {lat['p50_ms']:.3f} ms, p99 {lat['p99_ms']:.3f} ms; {batches} batches, occupancy "
         f"{lead['stats']['batch_occupancy']:.3f}, cache hits {lead['stats']['cache_hits']}; hot swap "
         f"{lead['swap_s']:.3f} s to generation {lead['swapped']} [{card}]")
@@ -2148,9 +2216,15 @@ def mesh_gateway_phase(paths, want, want_by_gen, card):
             f"rule_match_ordered [{card}]")
         log(f"[mesh-refresh] rank {o['rank']}: refresh_now {o['refresh_s']:.3f} s, "
             f"mode {o['history'][0]['mode']} ({o['history'][0]['reason']}), cycle {o['history'][0]['seconds']:.3f} s, "
-            f"{o['history'][0]['rules']} rules; K1 {o['k1']} launches [{card}]")
+            f"{o['history'][0]['rules']} rules; K1 {o['k1']} launches; its mine_delta {o['mine']['s']:.3f} s beside "
+            f"serving ([mesh-stream]'s of the same rows, nothing served: {quiet_mine_s[o['rank']]:.3f} s), K1 "
+            f"{o['mine']['k1']} and K2 {o['mine']['k2']} launches across it [{card}]")
     log(f"[mesh-refresh] appended {lead['appended']} rows in {lead['append_s']:.3f} s; the leader's "
-        f"refresh_now {lead['refresh_s']:.3f} s; every rank's result dict-identical to [delta]'s mine_delta")
+        f"refresh_now {lead['refresh_s']:.3f} s, inside which {answered} requests were answered "
+        f"({answered / lead['refresh_s']:.0f} qps; latency p50 {np.percentile(window_lat, 50):.3f} ms, p99 "
+        f"{np.percentile(window_lat, 99):.3f} ms; generation 1: {int((window_gens == 1).sum())}, generation 2: "
+        f"{int((window_gens == 2).sum())}); by stage on the leader: {'; '.join(stages)}; every rank's result "
+        f"dict-identical to [delta]'s mine_delta [{card}]")
     log("[mesh-gateway] zero drops; generations [0, 1, 2]; every response bit for bit its generation's mesh "
         f"recommend and within rtol {RTOL}, atol {ATOL} of its single-device recommend [{card}]")
     return outs
@@ -2529,7 +2603,8 @@ def main() -> int:
                      rulebook_swap=os.path.join(root, "rulebook-swap.npz"))
         np.save(paths["requests"], packed)
         rb2.to_host().save(paths["rulebook_swap"])
-        gw_outs = mesh_gateway_phase(paths, want, {0: (rec.items, rec.scores), 1: (want2.items, want2.scores)}, card)
+        gw_outs = mesh_gateway_phase(paths, want, {0: (rec.items, rec.scores), 1: (want2.items, want2.scores)}, card,
+                                     [o["delta"]["wall"] for o in mesh_outs])
         mesh_cli_phase(card)
         mesh_nccl_phase(streaming, ops, paths, want, mesh_passes, dev, card)
 
@@ -2570,6 +2645,7 @@ def main() -> int:
              mesh_ms_per_rank=[o["ms"] for o in rec_outs],
              mesh_shape_per_rank=[rec_outs[0]["baskets"], rec_outs[0]["rules"]],
              mesh_gateway_launches_per_rank=[o["k2"] for o in gw_outs],
+             mesh_gateway_launches_during_the_refresh_mine_per_rank=[o["mine"]["k2"] for o in gw_outs],
              mesh_gateway_ms_per_rank=[o["k2_block"]["ms"] for o in gw_outs],
              mesh_gateway_shape_per_rank=[gw_outs[0]["k2_block"]["baskets"], gw_outs[0]["k2_block"]["rules"]],
              examples_launches={n: e["launches"]["rule_match"] for n, e in examples.items()}),

@@ -179,6 +179,13 @@ class Mesh(MeshLayout):
         # objects and barriers travel over gloo whatever the tensors' backend
         self._host_group = dist.new_group(list(range(self.size)), timeout=timeout, backend="gloo")
 
+    def twin(self) -> "Mesh":
+        """A second mesh on the same ranks, shape, axes, device and timeout,
+        with process groups of its own: two threads of a rank may then
+        each run collectives, one on each mesh.  A collective call, made
+        by every rank in the same order."""
+        return Mesh(tuple(self.shape.values()), self.axes, self.device, timeout_s=self.timeout_s)
+
     def group(self, axes):
         """The process group of the ranks that share this rank's coordinates
         on every axis outside ``axes``."""

@@ -39,16 +39,22 @@ batch runs :func:`recommend.match_batch` on every rank: its basket block
 over ``data_axes``, K2 on its rule block, the rule blocks summed in block
 order, top-k, the blocks gathered over the data axes.  Its header names
 the generation the leader read, and a follower answers it with that
-generation's block.  A swap is two commands: the rulebook's host columns
-(or, from :class:`~repro_torch.serving.refresh.RefreshController`, a mine
-on every rank), each rank placing and warming its block, and an exchange
-of every rank's outcome; only when every rank holds its block does the
-leader commit, and the commit tells the followers to drop the older
-blocks.  While the leader is idle it sends a heartbeat every quarter of the
-mesh's timeout, so a follower waiting for a command never times out.
-``close()`` on the leader resolves every admitted request, then stops the
-followers; on a follower it waits for that stop.  A mesh of one rank is
-the single-device gateway.
+generation's block.  A swap is two commands: the rulebook's host columns,
+each rank placing and warming its block, and an exchange of every rank's
+outcome; only when every rank holds its block does the leader commit, and
+the commit tells the followers to drop the older blocks.  A refresh from
+:class:`~repro_torch.serving.refresh.RefreshController` mines beside
+serving: one command starts the mine on every rank, which runs in a thread
+of its own on the controller's second mesh (groups of its own, so the two
+threads of a rank never share a group), and the gateway goes on answering
+batches meanwhile.  Once every rank has mined and the ranks have exchanged
+their outcomes on that mesh, the leader takes the stream, names the
+generation, and each rank places its block of its own rulebook; the commit
+follows as for a swap.  While the leader is idle it sends a heartbeat
+every quarter of the mesh's timeout, so a follower waiting for a command
+never times out.  ``close()`` on the leader resolves every admitted
+request, then stops the followers; on a follower it waits for that stop
+and for a mine in flight.  A mesh of one rank is the single-device gateway.
 """
 
 from __future__ import annotations
@@ -72,7 +78,7 @@ from repro_torch.serving.recommend import make_match_step, match_batch, pack_bas
 from repro_torch.serving.rulebook import Rulebook, place_rulebook
 
 # the leader's commands to the followers
-BATCH, PREPARE, COMMIT, REFRESH, HEARTBEAT, STOP = range(1, 7)
+BATCH, PREPARE, COMMIT, MINE, PLACE, HEARTBEAT, STOP = range(1, 8)
 _HEADER = 6   # int64 fields: op, generation, bucket, top_k, rows, send time (us)
 
 
@@ -133,6 +139,33 @@ class _Commands:
             b = self.buf[2 * _HEADER : 2 * _HEADER + bucket * self.words].numpy()
             b = b.reshape(bucket, self.words).view(np.uint32).copy()
         return op, generation, bucket, top_k, rows, max(0.0, time.time() - t_us / 1e6), b
+
+
+class _Mine:
+    """A follower's refresh mine: a thread of its own, beside the follow
+    thread, running the controller's mine cycle on its mine mesh.  ``made``
+    holds the rulebook before the ranks exchange their outcomes, so the
+    follow thread finds it when the place command comes; ``error`` is what
+    ended the thread, if anything (a follower's ``close()`` raises it)."""
+
+    def __init__(self, gateway: "Gateway", rows: int):
+        self.rows, self.t0 = rows, time.perf_counter()
+        self.made: dict = {}
+        self.error: BaseException | None = None
+        self.thread = threading.Thread(target=self._run, args=(gateway,), name="refresh-mine", daemon=True)
+        self.thread.start()
+
+    def _run(self, gateway: "Gateway") -> None:
+        controller = gateway._refresher
+        try:
+            if gateway.device.type == "cuda":   # the current card is a thread's own
+                torch.cuda.set_device(gateway.device)
+            errors = controller._mine_cycle(self.rows, self.made)
+        except BaseException as e:  # noqa: BLE001 — close() re-raises it
+            self.error = e
+            errors = [f"rank {gateway._mesh.rank}: {traceback.format_exc()}"]
+        if errors:   # the leader places nothing: the cycle ends here
+            controller._followed(None, errors, self.made, self.rows, time.perf_counter() - self.t0)
 
 
 def pow2_bucket(n: int, max_batch: int, multiple: int = 1) -> int:
@@ -246,10 +279,12 @@ class Gateway:
             self._warm(self._generation)
         if not self.leader:
             # the generations a follower holds, by id: the serving one and
-            # any prepared one
+            # any prepared one (only the follow thread touches it; a
+            # refresh's mine thread hands its rulebook over in its ``_Mine``)
             self._held = {0: self._generation}
             self._refresher = None
             self._attached = threading.Condition()
+            self._mine: _Mine | None = None   # the refresh mine of the cycle in flight
             self._follow_error: BaseException | None = None
             self._follower = threading.Thread(target=self._follow, name="gateway-follower", daemon=True)
             self._follower.start()
@@ -281,11 +316,16 @@ class Gateway:
     def close(self) -> None:
         """Stop admitting; every already-admitted request still resolves.
         On a mesh the leader then stops the followers; a follower's
-        ``close()`` waits for that stop and raises what ended its loop."""
+        ``close()`` waits for that stop and for its refresh mine in flight,
+        and raises what ended its loop or its mine."""
         if not self.leader:
             self._follower.join()
-            if self._follow_error is not None:
-                raise self._follow_error
+            mine = self._mine
+            if mine is not None:
+                mine.thread.join()
+            for error in (self._follow_error, mine and mine.error):
+                if error is not None:
+                    raise error
             return
         self._closed = True
         self._batcher.close()
@@ -597,35 +637,34 @@ class Gateway:
 
     def _refresh(self, controller) -> tuple:
         """Leader: one refresh cycle of a mesh ``RefreshController`` on
-        every rank, then the commit.  Returns ``(generation, what the
+        every rank.  The mine runs beside serving, outside the locks; then
+        the place and the commit go through the command stream, with the
+        generation id taken under the swap lock (an operator's swap may
+        have landed during the mine).  Returns ``(generation, what the
         cycle made, the rows it covers)``."""
+        with self._commands.lock:
+            self._open_stream()
+            rows = open_store(controller.store_path).num_transactions
+            self._commands.send(MINE, rows=rows)
+        made = {}
+        errors = controller._mine_cycle(rows, made)
+        if errors:
+            raise RuntimeError(f"generation {self.generation} keeps serving: the refresh's mine failed on "
+                               f"{len(errors)} rank(s):\n" + "\n".join(errors))
         with self._swap_lock:
             with self._commands.lock:
+                self._open_stream()
                 gen_id = self._generation.generation + 1
-                rows = open_store(controller.store_path).num_transactions
-                self._commands.send(REFRESH, gen_id, rows=rows)
-                gen, errors, made = self._refresh_everywhere(controller, gen_id, rows)
-            self.commit_swap(self._prepared(gen, errors))
+                self._commands.send(PLACE, gen_id)
+                gen = self._prepared(*self._prepare_everywhere(gen_id, lambda: made["rulebook"]))
+            self.commit_swap(gen)
         return gen_id, made, rows
 
-    def _refresh_everywhere(self, controller, generation: int, rows: int) -> tuple:
-        """Every rank: check that each sees the store at the leader's
-        ``rows``, mine and compile (collective calls), then prepare."""
-        made = {}
-
-        def make():
-            try:
-                seen = open_store(controller.store_path).num_transactions
-            except (FileNotFoundError, ValueError) as e:
-                seen = f"{type(e).__name__}: {e}"
-            views = self._mesh.all_gather_object(seen)
-            if any(v != rows for v in views):
-                raise RuntimeError(f"the leader refreshes the store at {rows} rows; the ranks see {views}")
-            made["rulebook"], made["report"] = controller._mine_and_compile(open_store(controller.store_path))
-            return made["rulebook"]
-
-        gen, errors = self._prepare_everywhere(generation, make)
-        return gen, errors, made
+    def _open_stream(self) -> None:
+        """Leader, under the command lock: raise once ``close()`` has
+        stopped the followers."""
+        if self._quiet.is_set():
+            raise RuntimeError(f"the gateway is closed; generation {self.generation} keeps serving")
 
     def _attach(self, controller) -> None:
         """A mesh ``RefreshController`` of this gateway: a follower runs its
@@ -653,17 +692,24 @@ class Gateway:
                 elif op == COMMIT:
                     self._generation = self._held[generation]
                     self._held = {generation: self._generation}
-                elif op == REFRESH:
+                elif op == MINE:
                     with self._attached:
                         if not self._attached.wait_for(lambda: self._refresher is not None,
                                                        timeout=self._mesh.timeout_s):
                             raise RuntimeError("the leader refreshes, but no RefreshController was "
                                                "built on this rank")
-                    t0 = time.perf_counter()
-                    gen, errors, made = self._refresh_everywhere(self._refresher, generation, rows)
+                    if self._mine is not None:   # the last cycle's, past the exchange the
+                        self._mine.thread.join()  # leader passed before this command
+                    self._mine = _Mine(self, rows)
+                elif op == PLACE:
+                    mine = self._mine
+                    if mine is None or "rulebook" not in mine.made:
+                        raise RuntimeError("the leader places a refresh this rank has not mined")
+                    gen, errors = self._prepare_everywhere(generation, lambda: mine.made["rulebook"])
                     if gen is not None:
                         self._held[generation] = gen
-                    self._refresher._followed(generation, errors, made, rows, time.perf_counter() - t0)
+                    self._refresher._followed(generation, errors, mine.made, mine.rows,
+                                              time.perf_counter() - mine.t0)
                 elif op == STOP:
                     return
         except BaseException as e:  # noqa: BLE001 — close() re-raises it

@@ -24,21 +24,32 @@ refresh instead of a page.
 
 On a mesh (``mesh=``, one process a rank) every rank builds the controller
 beside its rank of a mesh :class:`~repro_torch.serving.gateway.Gateway`.
+Each rank has two meshes on the same ranks: the gateway's, whose groups
+carry serving (the command stream, the batches' collectives, the place and
+the commit), and the controller's own :attr:`RefreshController.mine_mesh`
+(``Mesh.twin``, built at construction), whose groups carry only the mine.
 The leader's (rank 0's) poller decides when to refresh, by the same
-watermark hysteresis, and its refresh goes out as a command in the
-gateway's stream: every rank then runs the delta mine (or the full one) on
-the mesh — collective calls — compiles the same rulebook (compiling is
-deterministic) and places its block, and the leader commits once every
-rank holds it.  A cycle that fails on any rank fails on every rank, and
-the previous generation keeps serving.  ``refresh_now()`` is a collective
-call: on the leader it drives a cycle, on a follower it waits for the
-cycle the leader drives next and returns its generation.
+watermark hysteresis.  A cycle mines beside serving, as the JAX package's
+does: the leader sends one command that starts the mine on every rank, and
+each rank runs the delta mine (or the full one) on the mine mesh in a
+thread of its own (on the card, on a CUDA stream of its own), compiles the
+same rulebook (compiling is deterministic) and exchanges its outcome there,
+while the gateway goes on answering batches with the serving generation.
+Only then does the leader take the command stream, name the generation,
+have every rank place its block of its own rulebook, and commit once every
+rank holds it.  A cycle that fails on any rank fails on every rank, and the
+previous generation keeps serving.  ``refresh_now()`` is a collective call:
+on the leader it drives a cycle, on a follower it waits for the cycle the
+leader drives next and returns its generation.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+import traceback
+
+import torch
 
 from repro_torch.core import apriori as ap
 from repro_torch.core import incremental as inc
@@ -94,8 +105,8 @@ class RefreshController:
     Both mine on ``device`` from the controller's own thread, beside the
     target's dispatch workers; the swap places the new rulebook there too
     (:meth:`Gateway.prepare_swap`).  With ``mesh`` the target is this
-    rank's mesh ``Gateway`` (the module docstring), and a cycle holds the
-    gateway's command stream: the mesh serves no batch while it mines.
+    rank's mesh ``Gateway``, and the mine runs on every rank on the
+    controller's own mesh, beside serving (the module docstring).
     ``min_append_rows`` is the watermark hysteresis: a refresh fires once at
     least that many rows sit above the last swapped watermark.
     """
@@ -172,7 +183,13 @@ class RefreshController:
         self._outcomes: list = []
         self._handed = 0
         self._cycled = threading.Condition()
+        # the mine's own groups (building them is a collective call): no
+        # collective of the mine shares a group with serving's
+        self.mine_mesh = mesh.twin() if self._on_mesh else mesh
+        self._stream = None
         if self._on_mesh:
+            if self.device.type == "cuda":
+                self._stream = torch.cuda.Stream(self.device)
             target._attach(self)
 
     # ------------------------------------------------------------ lifecycle --
@@ -263,11 +280,39 @@ class RefreshController:
                 raise
             return self._record(generation, rulebook, report, rows, time.perf_counter() - t0)
 
+    def _mine_cycle(self, rows: int, made: dict) -> list:
+        """Every rank of a mesh, beside serving: check that each sees the
+        store at the leader's ``rows``, mine and compile into ``made``
+        (collective calls on :attr:`mine_mesh`, launches on this
+        controller's CUDA stream), then exchange every rank's outcome on
+        the mine mesh.  Returns the ranks' errors: a rank that failed fails
+        the cycle on every rank.  ``made`` is filled before the exchange,
+        so once the leader is past it every rank's rulebook is ready to
+        place.  Every rank reaches the exchange, whatever failed before
+        it, or the others would wait there (a rank that fails inside one of
+        the mine's own collectives leaves the others waiting in it until
+        the groups' timeout)."""
+        try:
+            with torch.cuda.stream(self._stream):
+                try:
+                    seen = open_store(self.store_path).num_transactions
+                except (FileNotFoundError, ValueError) as e:
+                    seen = f"{type(e).__name__}: {e}"
+                views = self.mine_mesh.all_gather_object(seen)
+                if any(v != rows for v in views):
+                    raise RuntimeError(f"the leader refreshes the store at {rows} rows; the ranks see {views}")
+                made["rulebook"], made["report"] = self._mine_and_compile(open_store(self.store_path))
+            error = None
+        except Exception:  # noqa: BLE001 — reported to every rank below
+            error = f"rank {self.mesh.rank}: {traceback.format_exc()}"
+        return [e for e in self.mine_mesh.all_gather_object(error) if e is not None]
+
     def _mine_and_compile(self, store):
-        """The cycle's mine (on a mesh, a collective call) and compile."""
+        """The cycle's mine (on a mesh, a collective call on the mine mesh)
+        and compile."""
         if self.mode == "full":
             res = st.mine_streamed(
-                store, self.cfg, device=self.device, mesh=self.mesh,
+                store, self.cfg, device=self.device, mesh=self.mine_mesh,
                 chunk_rows=self.chunk_rows, prefetch=self.prefetch,
             )
             report = inc.DeltaReport(
@@ -283,7 +328,7 @@ class RefreshController:
                 resume=True,
                 max_delta_fraction=self.max_delta_fraction,
                 max_drift_fraction=self.max_drift_fraction,
-                mesh=self.mesh,
+                mesh=self.mine_mesh,
             )
         rulebook = compile_rulebook(
             res,
@@ -315,10 +360,12 @@ class RefreshController:
             self.on_refresh(record)
         return generation
 
-    def _followed(self, generation: int, errors: list, made: dict, rows: int, seconds: float) -> None:
-        """Follower: the gateway ran a cycle the leader drove."""
+    def _followed(self, generation: int | None, errors: list, made: dict, rows: int, seconds: float) -> None:
+        """Follower: the gateway ran a cycle the leader drove (``generation``
+        None: it failed in the mine, before the leader named one)."""
         if errors:
-            outcome = RuntimeError(f"refresh to generation {generation} failed:\n" + "\n".join(errors))
+            what = "the refresh's mine" if generation is None else f"the refresh to generation {generation}"
+            outcome = RuntimeError(f"{what} failed:\n" + "\n".join(errors))
             self.last_error = outcome
             self.metrics.record_failure()
         else:

@@ -17,10 +17,23 @@ every rank answers every batch with the same generation.  The
 places where a leader and its followers go wrong each have a test: idle
 followers past the groups' timeout, a follower that dies, the bucket
 ladder, and a mesh of one rank.
+
+F8: a refresh on the mesh mines beside serving, on a second mesh of its
+own, as the JAX package's refresh mines beside its gateway.  The same
+spawn then runs three refresh cycles whose mines are held on every rank by
+a file protocol (``torch_mesh_ranks.HeldMines``): requests submitted with
+a deadline while a mine is held are answered by the serving generation; an
+operator's swap during a held mine takes its own generation and the
+refresh the next; a mine that fails on one follower fails the cycle on
+every rank while serving goes on; ``close()`` during a held mine returns
+and leaves no thread.  Every collective of the spawn is logged: the mine's
+go only to the mine mesh's groups, serving's only to the gateway's, and no
+two threads are ever in one group at once.
 """
 
 import os
 import shutil
+import threading
 import time
 
 import pytest
@@ -94,19 +107,22 @@ def served(tmp_path_factory):
     jinc.build_count_cache(jds.open_store(jax_store), JCFG, chunk_rows=64)
     for path in (store, jax_store):
         jds.append_chunks([extra], path)
+    idle_store = str(root / "idle-store")   # the grown store with its cache, before any refresh
+    shutil.copytree(store, idle_store)
     jres2, jrep2 = jinc.mine_delta(jds.open_store(jax_store), JCFG, chunk_rows=64)
     grown = np.concatenate([db, extra])
     single2 = mine(grown, AprioriConfig(min_support=0.04, max_k=4, representation="packed"), device="cpu")
     baskets = db[:90]
     return dict(db=db, baskets=baskets, jrb={0: jrb0, 1: jrb1}, rb={0: _port(jrb0), 1: _port(jrb1)},
-                store=store, jres2=jres2.as_dict(), jrep2=jrep2, single2=single2.as_dict())
+                store=store, jax_store=jax_store, idle_store=idle_store, jres2=jres2.as_dict(), jrep2=jrep2,
+                single2=single2.as_dict())
 
 
 @pytest.fixture(scope="module")
-def on_2x3(served):
+def on_2x3(served, tmp_path_factory):
     rb, baskets = served["rb"], served["baskets"]
     return _spawn(ranks.mesh_gateway, (2, 3), rb[0], rb[1], baskets, served["store"], CFG, TOP_K, MAX_BATCH,
-                  CLIENTS)
+                  CLIENTS, str(tmp_path_factory.mktemp("hold")))
 
 
 def _responses(leader):
@@ -243,3 +259,161 @@ def test_one_rank_mesh_takes_the_single_device_path(served):
         want = recommend(served["rb"][0], baskets, top_k=TOP_K, batch_size=r.bucket, device="cpu")
         np.testing.assert_array_equal(r.items, want.items[i])
         np.testing.assert_array_equal(r.scores.view(np.uint32), want.scores[i].view(np.uint32))
+
+
+# ------------------------------------------------------------------- F8 --
+def _bit_for_bit(leader, responses, first=0):
+    """Each response (basket ``first + i``) bit for bit the mesh
+    ``recommend`` of its generation at its bucket, and not from the cache."""
+    for i, r in enumerate(responses):
+        assert not r.cached
+        items, scores = leader["refs"][(r.generation, r.bucket)]
+        np.testing.assert_array_equal(r.items, items[first + i])
+        np.testing.assert_array_equal(r.scores.view(np.uint32), scores[first + i].view(np.uint32))
+
+
+def test_f8_requests_are_answered_by_the_old_generation_while_the_mine_is_held(on_2x3):
+    """While the refresh's mine is held on every rank, every request
+    submitted with a deadline is answered, before the refresh commits, by
+    the serving generation, bit for bit its mesh ``recommend``; none
+    expires or is rejected.  Then the refresh commits on every rank."""
+    leader = on_2x3[0]
+    held = leader["held"]
+    assert held["failed"] == []   # no DeadlineExceeded, AdmissionRejected or unanswered request
+    assert len(held["got"]) == ranks.HELD_REQUESTS and all(r is not None for r in held["got"])
+    assert held["refresh_running"] and held["generation"] == held["before"] == 2 and held["cycles"] == 1
+    assert {r.generation for r in held["got"]} == {2}
+    _bit_for_bit(leader, held["got"])
+    assert [o["held_refresh"] for o in on_2x3] == [4] * 6
+    assert all(o["history_all"][1]["generation"] == 4 and o["history_all"][1]["mode"] == "delta"
+               for o in on_2x3)
+
+
+def test_f8_the_jax_gateway_answers_while_its_refresh_mines(served, tmp_path, monkeypatch):
+    """The reference: JAX's ``Gateway`` + ``RefreshController``, its
+    ``mine_delta`` held (patched here only), answer every request
+    submitted with a deadline by generation 0, bit for bit JAX's
+    ``recommend`` at the response's bucket; then the refresh commits."""
+    from concurrent.futures import TimeoutError as NotYet
+
+    from repro.serving.gateway import Gateway as JGateway
+    from repro.serving.refresh import RefreshController as JRefreshController
+
+    store = str(tmp_path / "store")
+    shutil.copytree(served["jax_store"], store)
+    jds.append_chunks([served["db"][:30]], store)
+    entered, release = threading.Event(), threading.Event()
+    mine_delta = jinc.mine_delta
+
+    def held(*args, **kwargs):
+        entered.set()
+        assert release.wait(ranks.HOLD_S), "the test never released the mine"
+        return mine_delta(*args, **kwargs)
+
+    monkeypatch.setattr(jinc, "mine_delta", held)
+    baskets = served["baskets"][: ranks.HELD_REQUESTS]
+    gw = JGateway(served["jrb"][0], top_k=TOP_K, max_batch=MAX_BATCH, impl="jnp", max_wait_ms=2.0)
+    try:
+        ctl = JRefreshController(store, gw, JCFG, chunk_rows=64, min_confidence=0.4)
+        box = {}
+        refresher = threading.Thread(target=lambda: box.setdefault("generation", ctl.refresh_now()), daemon=True)
+        refresher.start()
+        assert entered.wait(ranks.HOLD_S)
+        futs = [gw.submit(np.flatnonzero(b).tolist(), deadline_ms=ranks.HELD_DEADLINE_MS) for b in baskets]
+        got, failed = [], []
+        for f in futs:
+            try:
+                got.append(f.result(ranks.ANSWER_S))
+            except NotYet:
+                failed.append("not answered")
+            except Exception as e:  # noqa: BLE001 — DeadlineExceeded, AdmissionRejected
+                failed.append(repr(e))
+        running, generation = refresher.is_alive(), gw.generation
+        release.set()
+        refresher.join(ranks.HOLD_S)
+    finally:
+        release.set()
+        gw.close()
+    assert failed == [] and running and generation == 0
+    for i, r in enumerate(got):
+        assert r.generation == 0 and not r.cached
+        want = jrecommend(served["jrb"][0], baskets, top_k=TOP_K, batch_size=r.bucket, impl="jnp")
+        np.testing.assert_array_equal(r.items, np.asarray(want.items)[i])
+        np.testing.assert_array_equal(r.scores.view(np.uint32), np.asarray(want.scores)[i].view(np.uint32))
+    assert box["generation"] == gw.generation == 1
+
+
+def test_an_operator_swap_during_a_held_mine_takes_its_own_generation(on_2x3):
+    """A hot swap lands while the refresh's mine is held (generation 3),
+    is served at once, and the refresh's commit takes generation 4: the id
+    is taken at the place, not at the mine's start."""
+    leader = on_2x3[0]
+    assert leader["held_swap"] == dict(value=3, returned_while_held=True)
+    after = leader["held_after_swap"]
+    assert after["failed"] == [] and after["refresh_running"]
+    assert {r.generation for r in after["got"]} == {3}
+    _bit_for_bit(leader, after["got"], first=ranks.HELD_REQUESTS)
+    nxt = leader["held_next"]
+    assert nxt["failed"] == [] and {r.generation for r in nxt["got"]} == {4}
+    _bit_for_bit(leader, nxt["got"])
+    # every rank answered every batch of the held cycles with one generation
+    for other in on_2x3[1:]:
+        assert other["answered_all"] == leader["answered_all"]
+    assert {g for g, _ in leader["answered_all"]} == {0, 1, 2, 3, 4}
+
+
+def test_a_mine_that_fails_on_one_follower_fails_the_cycle_on_every_rank(on_2x3):
+    """The mine fails on rank 5 only: the leader's ``refresh_now`` and
+    every follower's raise with rank 5's error, generation 4 serves on,
+    and requests submitted while that mine was held were answered."""
+    leader = on_2x3[0]
+    failing = leader["failing"]
+    assert failing["failed"] == [] and failing["refresh_running"]
+    assert {r.generation for r in failing["got"]} == {4}
+    _bit_for_bit(leader, failing["got"])
+    assert leader["kept_after_failure"] == 4
+    for per_rank in on_2x3:
+        assert "the mine fails on rank 5 on purpose" in per_rank["failed_mine"]
+        assert per_rank["history_all"][-1]["generation"] == 4
+    assert "the refresh's mine failed on 1 rank(s)" in leader["failed_mine"]
+
+
+def test_close_during_a_held_mine_returns_and_leaves_no_thread(on_2x3):
+    """Rank 0 closes the gateway while the mine is held: its close returns
+    at once and its refresh raises; each follower's refresh raises, its
+    close waits for its mine thread, and no rank is left with a thread of
+    the gateway or the controller.  (The spawn returning shows no rank's
+    process is left.)"""
+    leader = on_2x3[0]
+    assert leader["closed_while_held"] and leader["close_s"] < ranks.CLOSE_RELEASE_S
+    assert "the gateway is closed" in leader["closed_refresh"]
+    for per_rank in on_2x3:
+        assert per_rank["threads_after_close"] == []
+    for follower in on_2x3[1:]:
+        assert "follow loop ended before the refresh" in follower["closed_refresh"]
+
+
+def test_the_mine_and_serving_never_share_a_group(on_2x3):
+    """On every rank, every collective of the refresh's mine cycle went to
+    the mine mesh's groups and every other collective to the gateway
+    mesh's; none went to the default group, the two meshes share no group,
+    and no two threads were ever in one group at once."""
+    for per_rank in on_2x3:
+        groups = per_rank["groups"]
+        assert groups["mine"] > 0 and groups["serving"] > 0
+        assert groups["wrong"] == [] and groups["overlaps"] == [] and groups["shared"] == []
+
+
+def test_idle_refresh_groups_outlive_the_group_timeout(served):
+    """Groups that time out after 3 s, 7 s of idling on both meshes: the mine
+    mesh's groups, idle the whole time, still carry the delta mine (equal
+    to JAX's ``mine_delta``), and its generation then serves."""
+    timeout_s, idle_s = 3.0, 7.0
+    out = _spawn(ranks.mesh_refresh_idle, (2, 1), served["rb"][0], served["baskets"][:12], served["idle_store"],
+                 CFG, timeout_s, idle_s)
+    for per_rank in out:
+        assert per_rank["timeouts"] == (timeout_s, timeout_s)
+        assert per_rank["refreshed"] == 1 and per_rank["mode"] == "delta"
+        assert per_rank["result"] == served["jres2"]
+    got, failed = out[0]["got"]
+    assert not failed and all(r is not None and r.generation == 1 for r in got)

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 import time
 
 import numpy as np
@@ -307,14 +308,239 @@ def _answered(log):
     return match, logged
 
 
-def mesh_gateway(mesh, rb0, rb1, baskets, store_path, cfg, top_k, max_batch, clients):
+HOLD_S = 30.0          # the longest a rank waits for a file of the held-mine protocol
+ANSWER_S = 8.0         # the longest the leader waits for answers while a mine is held
+HELD_DEADLINE_MS = 5000.0
+HELD_REQUESTS = 24
+CLOSE_RELEASE_S = 2.0  # how long after rank 0's close() starts the closing cycle's mine is released
+
+
+def _wait_files(paths, timeout=HOLD_S):
+    deadline = time.monotonic() + timeout
+    while not all(os.path.exists(p) for p in paths):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"waited {timeout} s for {[p for p in paths if not os.path.exists(p)]}")
+        time.sleep(0.01)
+
+
+def _touch(path):
+    with open(path, "w"):
+        pass
+
+
+class HeldMines:
+    """Within ``with``: this process's ``incremental.mine_delta``, its calls
+    counted from 1.  A call named in ``plan`` (call -> (name, failing rank
+    or None)) writes ``<name>-held-<rank>`` into ``hold_dir`` and waits
+    until ``<name>-release`` is there (at most ``HOLD_S``) before it mines;
+    on the failing rank it raises once it has mined."""
+
+    def __init__(self, rank, hold_dir, plan):
+        self.rank, self.hold_dir, self.plan, self.calls = rank, hold_dir, plan, 0
+
+    def __enter__(self):
+        self.mine_delta = inc.mine_delta
+
+        def held(*args, **kwargs):
+            self.calls += 1
+            name, failing = self.plan.get(self.calls, (None, None))
+            if name is not None:
+                _touch(os.path.join(self.hold_dir, f"{name}-held-{self.rank}"))
+                _wait_files([os.path.join(self.hold_dir, f"{name}-release")])
+            out = self.mine_delta(*args, **kwargs)
+            if failing == self.rank:
+                raise RuntimeError(f"the mine fails on rank {self.rank} on purpose")
+            return out
+
+        inc.mine_delta = held
+        return self
+
+    def __exit__(self, *exc):
+        inc.mine_delta = self.mine_delta
+
+    def hold(self, name, size):
+        """Leader: wait until every rank holds the mine ``name``."""
+        _wait_files([os.path.join(self.hold_dir, f"{name}-held-{r}") for r in range(size)])
+
+    def release(self, name):
+        _touch(os.path.join(self.hold_dir, f"{name}-release"))
+
+
+class GroupLog:
+    """Within ``with``: every collective this process sends through
+    ``torch.distributed``: whether it came from a refresh's mine cycle
+    (``RefreshController._mine_cycle``) and the id of its group (None: the
+    default group), and every overlap: a collective entered on a group
+    while another thread's collective is still in it."""
+
+    NAMES = ("all_reduce", "all_gather", "broadcast", "all_gather_object", "broadcast_object_list", "barrier")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        from repro_torch.serving.refresh import RefreshController
+
+        self.dist, self.cls = dist, RefreshController
+        self.calls, self.overlaps, busy = [], [], {}
+        lock, local = threading.Lock(), threading.local()
+        self.saved = {name: getattr(dist, name) for name in self.NAMES}
+        self.mine_cycle = RefreshController._mine_cycle
+
+        def wrap(name, fn):
+            def run(*args, **kwargs):
+                group = kwargs.get("group")
+                key, me = (None if group is None else id(group)), threading.current_thread().name
+                with lock:
+                    if busy.get(key) is not None:
+                        self.overlaps.append((name, me, busy[key]))
+                    busy[key] = me
+                    self.calls.append((getattr(local, "mine", False), key))
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    with lock:
+                        busy[key] = None
+
+            return run
+
+        def marked(ctl, *args, **kwargs):
+            local.mine = True
+            try:
+                return self.mine_cycle(ctl, *args, **kwargs)
+            finally:
+                local.mine = False
+
+        for name, fn in self.saved.items():
+            setattr(dist, name, wrap(name, fn))
+        RefreshController._mine_cycle = marked
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.dist, name, fn)
+        self.cls._mine_cycle = self.mine_cycle
+
+    def report(self, serving_mesh, mine_mesh) -> dict:
+        """The calls on each mesh's groups, and those on a wrong one."""
+        ids = {m: {id(g) for g in [*m._groups.values(), m._host_group]} for m in (serving_mesh, mine_mesh)}
+        wrong = [(mine, key) for mine, key in self.calls if key not in ids[mine_mesh if mine else serving_mesh]]
+        return dict(mine=sum(m for m, _ in self.calls), serving=sum(not m for m, _ in self.calls), wrong=wrong,
+                    overlaps=self.overlaps, shared=sorted(ids[serving_mesh] & ids[mine_mesh]))
+
+
+def _in_thread(fn):
+    """``fn()`` in a thread of its own; returns the thread and a box that
+    gets ``fn``'s result or its error's text."""
+    box = {}
+
+    def run():
+        try:
+            box["value"] = fn()
+        except Exception as e:  # noqa: BLE001 — the caller reads it
+            box["error"] = str(e)
+
+    t = threading.Thread(target=run, name="test-refresh", daemon=True)
+    t.start()
+    return t, box
+
+
+def _answers(gw, baskets, deadline_ms=HELD_DEADLINE_MS, wait_s=ANSWER_S):
+    """Every basket submitted at once with a deadline; each response, or the
+    text of what it failed with (not answered within ``wait_s`` included)."""
+    from concurrent.futures import TimeoutError as NotYet
+
+    gw.cache.evict_generation(gw.generation)   # answered by a batch, not the cache
+    futs = [gw.submit(np.flatnonzero(b).tolist(), deadline_ms=deadline_ms) for b in baskets]
+    deadline = time.monotonic() + wait_s
+    got, failed = [None] * len(futs), []
+    for i, f in enumerate(futs):
+        try:
+            got[i] = f.result(max(0.0, deadline - time.monotonic()))
+        except NotYet:
+            failed.append(f"request {i}: not answered within {wait_s} s")
+        except Exception as e:  # noqa: BLE001 — DeadlineExceeded, AdmissionRejected
+            failed.append(f"request {i}: {type(e).__name__}: {e}")
+    return got, failed
+
+
+def _live_threads():
+    return sorted(t.name for t in threading.enumerate()
+                  if t.is_alive() and t.name.startswith(("gateway-", "refresh-", "test-")))
+
+
+def _held_cycles(mesh, gw, ctl, held, baskets, rb1, store_path, made, out):
+    """Three refresh cycles, each with its mine held on every rank.  A: 30
+    rows appended; while the mine is held rank 0 submits baskets with a
+    deadline (the old generation must answer them), then an operator's
+    hot swap to ``rb1``, then more baskets; then the mine is released and
+    the refresh commits.  B: the mine fails on the last rank, a follower,
+    once it is released; baskets submitted while it is held.  C: rank 0
+    closes the gateway while the mine is held; the mine is released
+    ``CLOSE_RELEASE_S`` after the close began."""
+    if mesh.rank != 0:
+        out["held_refresh"] = ctl.refresh_now()
+        out["held_rb"] = made[-1][1]
+        for key in ("failed_mine", "closed_refresh"):
+            try:
+                ctl.refresh_now()
+            except RuntimeError as e:
+                out[key] = str(e)
+        t0 = time.perf_counter()
+        gw.close()
+        out["close_s"] = time.perf_counter() - t0
+        return
+    append_chunks(iter([baskets[:30]]), store_path)
+    refresher, box = _in_thread(ctl.refresh_now)
+    held.hold("a", mesh.size)
+    before = gw.generation
+    got, failed = _answers(gw, baskets[:HELD_REQUESTS])
+    out["held"] = dict(before=before, got=got, failed=failed, refresh_running=refresher.is_alive(),
+                       generation=gw.generation, cycles=len(ctl.history))
+    swapper, swap = _in_thread(lambda: gw.hot_swap(rb1))
+    swapper.join(ANSWER_S)
+    out["held_swap"] = dict(returned_while_held=not swapper.is_alive())
+    got, failed = _answers(gw, baskets[HELD_REQUESTS : HELD_REQUESTS + 8])
+    out["held_after_swap"] = dict(got=got, failed=failed, refresh_running=refresher.is_alive())
+    held.release("a")
+    refresher.join(HOLD_S)
+    swapper.join(HOLD_S)
+    out["held_swap"].update(swap)
+    out["held_refresh"] = box.get("value", box.get("error"))
+    out["held_rb"] = made[-1][1]
+    got, failed = _answers(gw, baskets[:8])
+    out["held_next"] = dict(got=got, failed=failed)
+
+    refresher, box = _in_thread(ctl.refresh_now)
+    held.hold("b", mesh.size)
+    got, failed = _answers(gw, baskets[:HELD_REQUESTS])
+    out["failing"] = dict(got=got, failed=failed, refresh_running=refresher.is_alive())
+    held.release("b")
+    refresher.join(HOLD_S)
+    out["failed_mine"], out["kept_after_failure"] = box.get("error"), gw.generation
+
+    refresher, box = _in_thread(ctl.refresh_now)
+    held.hold("c", mesh.size)
+    release = threading.Timer(CLOSE_RELEASE_S, held.release, ("c",))
+    release.start()
+    t0 = time.perf_counter()
+    gw.close()
+    out["close_s"] = time.perf_counter() - t0
+    out["closed_while_held"] = not os.path.exists(os.path.join(held.hold_dir, "c-release"))
+    release.join()
+    refresher.join(HOLD_S)
+    out["closed_refresh"] = box.get("error")
+
+
+def mesh_gateway(mesh, rb0, rb1, baskets, store_path, cfg, top_k, max_batch, clients, hold_dir):
     """One rank of the mesh gateway: 90 baskets from ``clients`` threads
     on rank 0 with a hot swap to ``rb1`` at half load; then ``refresh_now``
     on every rank twice: under a config every rank refuses, then a delta
     mine of the rows appended to the store; then the baskets again, and one
-    alone.  Every rank logs the batches it
-    answered; after ``close()`` every rank runs the mesh ``recommend`` of
-    each generation at each bucket rank 0 answered with."""
+    alone.  Every rank logs the batches it answered.  Then three refresh
+    cycles whose mines are held on every rank (:func:`_held_cycles`), the
+    last of which closes the gateway, while every collective is logged
+    (:class:`GroupLog`).  After ``close()`` every rank runs the mesh
+    ``recommend`` of each generation at each bucket rank 0 answered with."""
     from repro_torch.serving import refresh as refresh_mod
     from repro_torch.serving.gateway import Gateway
     from repro_torch.serving.refresh import RefreshController
@@ -330,6 +556,7 @@ def mesh_gateway(mesh, rb0, rb1, baskets, store_path, cfg, top_k, max_batch, cli
 
     match, logged = _answered(log)
     Gateway._match, refresh_mod.compile_rulebook = logged, captured
+    held = HeldMines(mesh.rank, hold_dir, {3: ("a", None), 4: ("b", mesh.size - 1), 5: ("c", None)})
     try:
         gw = Gateway(rb0, mesh=mesh, device="cpu", top_k=top_k, max_batch=max_batch, warmup="ladder",
                      max_wait_ms=2.0)
@@ -347,28 +574,41 @@ def mesh_gateway(mesh, rb0, rb1, baskets, store_path, cfg, top_k, max_batch, cli
             out["kept"] = gw.generation
             out["refreshed"] = ctl.refresh_now()
 
-        if mesh.rank == 0:
-            out["load"] = _drive(gw, baskets, clients, mid=lambda: gw.hot_swap(rb1))
-            refresh_twice()
-            out["after"] = _drive(gw, baskets, clients)
-            gw.cache.evict_generation(gw.generation)   # basket 0 again, alone: bucket 2
-            out["alone"] = gw.query(np.flatnonzero(baskets[0]).tolist())
-        else:
-            try:
-                gw.submit(baskets[0])
-            except RuntimeError as e:
-                out["follower_submit"] = str(e)
-            refresh_twice()
-        gw.close()
+        with held, GroupLog() as groups:
+            if mesh.rank == 0:
+                out["load"] = _drive(gw, baskets, clients, mid=lambda: gw.hot_swap(rb1))
+                refresh_twice()
+                out["after"] = _drive(gw, baskets, clients)
+                gw.cache.evict_generation(gw.generation)   # basket 0 again, alone: bucket 2
+                out["alone"] = gw.query(np.flatnonzero(baskets[0]).tolist())
+            else:
+                try:
+                    gw.submit(baskets[0])
+                except RuntimeError as e:
+                    out["follower_submit"] = str(e)
+                refresh_twice()
+            answered = len(log)   # the followers' logs are cut to rank 0's below
+            out["history"], out["failures"], res2_rb2 = list(ctl.history), ctl.metrics.failures, made[-1]
+            _held_cycles(mesh, gw, ctl, held, baskets, rb1, store_path, made, out)
+        out["groups"] = groups.report(mesh, ctl.mine_mesh)
+        out["threads_after_close"] = _live_threads()
     finally:
         Gateway._match, refresh_mod.compile_rulebook = match, compile_rulebook
-    out["answered"], out["history"], out["failures"] = log, ctl.history, ctl.metrics.failures
-    res2, rb2 = made[-1]
+    out["answered"] = log[: mesh.broadcast_object(answered if mesh.rank == 0 else None)]
+    out["answered_all"], out["history_all"] = log, ctl.history
+    res2, rb2 = res2_rb2
     out["result"] = res2.as_dict()
-    responses = (out["load"][0] + out["after"][0] + [out["alone"]]) if mesh.rank == 0 else None
-    keys = mesh.broadcast_object(sorted({(r.generation, r.bucket) for r in responses}) if responses else None)
-    rbs = {0: rb0, 1: rb1, 2: rb2}
-    refs = {key: recommend(rbs[key[0]], baskets, top_k=top_k, batch_size=key[1], device="cpu", mesh=mesh)
+    served = None
+    if mesh.rank == 0:
+        responses = out["load"][0] + out["after"][0] + [out["alone"]]
+        for key in ("held", "held_after_swap", "held_next", "failing"):
+            responses += out[key]["got"]
+        # each generation's rulebook, by the ids rank 0 was handed
+        names = {0: "rb0", 1: "rb1", 2: "rb2", out["held_swap"].get("value"): "rb1", out["held_refresh"]: "held"}
+        served = (sorted({(r.generation, r.bucket) for r in responses if r is not None}), names)
+    keys, names = mesh.broadcast_object(served)
+    rbs = dict(rb0=rb0, rb1=rb1, rb2=rb2, held=out["held_rb"])
+    refs = {key: recommend(rbs[names[key[0]]], baskets, top_k=top_k, batch_size=key[1], device="cpu", mesh=mesh)
             for key in keys}
     out["refs"] = {key: (r.items, r.scores) for key, r in refs.items()}
     out["rb2"] = rb2
@@ -422,3 +662,36 @@ def one_rank_gateway(mesh, rb, baskets):
     got, failed = _drive(gw, baskets, 2)
     gw.close()
     return dict(single=gw._mesh is None and gw._commands is None, got=got, failed=failed)
+
+
+def mesh_refresh_idle(mesh, rb, baskets, store_path, cfg, timeout_s, idle_s):
+    """A gateway and its refresh controller on a mesh whose groups time out
+    after ``timeout_s``, every rank idle for ``idle_s`` (the mine mesh's
+    groups see no traffic at all), then a refresh on every rank and
+    ``baskets`` served by its generation."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.serving import refresh as refresh_mod
+    from repro_torch.serving.gateway import Gateway
+    from repro_torch.serving.refresh import RefreshController
+
+    torch.set_num_threads(1)
+    short = Mesh(tuple(mesh.shape.values()), mesh.axes, mesh.device, timeout_s=timeout_s)
+    made = []
+    compile_rulebook = refresh_mod.compile_rulebook
+
+    def captured(res, **kw):
+        made.append(res)
+        return compile_rulebook(res, **kw)
+
+    refresh_mod.compile_rulebook = captured
+    try:
+        gw = Gateway(rb, mesh=short, device="cpu", top_k=5, max_batch=8)
+        ctl = RefreshController(store_path, gw, cfg, mesh=short, device="cpu", min_confidence=0.4, chunk_rows=64)
+        time.sleep(idle_s)
+        refreshed = ctl.refresh_now()
+        got = _drive(gw, baskets, 2) if short.rank == 0 else None
+        gw.close()
+    finally:
+        refresh_mod.compile_rulebook = compile_rulebook
+    return dict(refreshed=refreshed, got=got, result=made[-1].as_dict(), mode=ctl.history[-1]["mode"],
+                timeouts=(short.timeout_s, ctl.mine_mesh.timeout_s))
