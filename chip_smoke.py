@@ -73,6 +73,17 @@ each with its own CUDA context, every rank's result checked:
   its generation's mesh ``recommend`` and within rtol 1e-5, atol 1e-6 of
   its single-device one; K2 at each rank's blocks of a full bucket bit for
   bit ``rule_match_ordered``;
+* ``[mesh-faults]``: one more spawn of the 2 x 2 mesh, on groups that time
+  out after 15 s: the mesh gateway on the 43,518-rule rulebook, 16 clients
+  sending the store's first 4,096 rows in loads, a follower's batch and
+  then the leader's raising once (injected here, in the rank function):
+  exactly those batches' requests fail, naming the rank, and every other
+  response is bit for bit its generation's mesh ``recommend``; then a
+  follower's refresh mine raising inside level 2 (the cycle fails on every
+  rank, the generation stays, the mine mesh is rebuilt), then a clean
+  refresh on every rank, dict-identical to ``[delta]``'s ``mine_delta``,
+  whose ``refresh_now`` returns the generation that serves on every rank;
+  qps and p99 of each load and of the passes sent while each refresh runs;
 * ``[mesh-cli]``: the mine CLI under ``torchrun`` on a 2 x 2 mesh prints the
   single-device CLI's last line;
 * ``[mesh-nccl]``: ``[mesh]`` over NCCL, one rank a card, only where the
@@ -1069,12 +1080,13 @@ LADDER = (1, 2, 4, 8, 16, 32, 64)   # Gateway(max_batch=64, warmup="ladder")
 APPEND_FRACTION = 0.05    # 5% of the store's rows, as the serve CLI appends
 
 
-def drive_clients(submit, n, mid=None, done=None):
+def drive_clients(submit, n, mid=None, done=None, errors=None):
     """``n`` single-basket requests from ``CLIENTS`` closed-loop threads
     (client c sends requests c, c + 16, ...); ``mid()`` runs between the
     first and the second half; ``done[i]``, if given, gets the host time
     request i was answered.  Returns (responses by request, counts of each
-    typed failure, wall s)."""
+    typed failure, wall s).  ``errors``, if given, gets the text of any
+    other error by request (its response stays None) instead of raising."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.serving import AdmissionRejected, DeadlineExceeded, WorkerCrashed
@@ -1093,6 +1105,10 @@ def drive_clients(submit, n, mid=None, done=None):
             except tuple(kinds) as e:
                 with lock:
                     failed[kinds[type(e)]] += 1
+            except Exception as e:  # noqa: BLE001 — the caller reads it
+                if errors is None:
+                    raise
+                errors[i] = f"{type(e).__name__}: {e}"
 
     def fire(lo, hi, pool):
         for f in [pool.submit(client, range(lo + c, hi, CLIENTS)) for c in range(CLIENTS)]:
@@ -1655,6 +1671,8 @@ class CollectiveTimes:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 out = fn(*args, **kwargs)
+                if out is not None:   # sent with async_op=True (every mesh collective): wait here
+                    out.wait()
                 torch.cuda.synchronize()
                 self.times.append(time.perf_counter() - t0)
                 return out
@@ -2230,6 +2248,253 @@ def mesh_gateway_phase(paths, want, want_by_gen, card, quiet_mine_s):
     return outs
 
 
+FAULTS_TIMEOUT_S = 15.0   # the groups' timeout of the [mesh-faults] spawn (the other spawns': MESH_TIMEOUT_S)
+FAULTS_FOLLOWER = 3       # the follower whose batch and whose refresh mine fail in [mesh-faults]
+
+
+def _load(submit, mid=None):
+    """One load of ``REQUESTS`` from the clients (:func:`drive_clients`) as
+    arrays: the responses' items, scores, generations and latencies (zero
+    rows where a request failed), which were answered, the errors' texts,
+    the typed failures, the end times and the wall."""
+    done, errors = np.zeros(REQUESTS), {}
+    out, failed, wall = drive_clients(submit, REQUESTS, mid, done=done, errors=errors)
+    ok = np.array([r is not None for r in out])
+    first = next(r for r in out if r is not None)
+
+    def col(name, fill):
+        return np.stack([getattr(r, name) if r is not None else fill for r in out])
+
+    return dict(ok=ok, errors=list(errors.values()), failed=failed, done=done, wall=wall,
+                items=col("items", np.zeros_like(first.items)), scores=col("scores", np.zeros_like(first.scores)),
+                gens=col("generation", -1), latency=col("latency_s", 0.0))
+
+
+def mesh_faults_rank(mesh, paths):
+    """One rank of ``[mesh-faults]``, on a mesh of ``mesh``'s ranks whose
+    groups time out after ``FAULTS_TIMEOUT_S``: the mesh gateway on the
+    43,518-rule rulebook and a delta ``RefreshController`` on a copy of the
+    store with its 100,000-row count cache.  Rank 0 sends 4 loads of the
+    store's first 4,096 rows from 16 clients: clean; with the follower's
+    ``Gateway._match`` raising once from half way (a file tells it);
+    with its own raising once from half way; clean.  Then it appends
+    [delta]'s 5,000 rows, and every rank calls ``refresh_now`` twice: the
+    follower's first mine raises at its second ``streaming._reduced`` (the
+    union count's level 2, between two of the mine's collectives), the
+    second is clean; rank 0 runs each in a thread while its clients send
+    the rows in passes until one starts after the refresh has ended.  Each
+    rank times its mine mesh's rebuild (``Mesh.twin``) and counts its
+    launches over the whole phase; then every rank's mesh ``recommend`` of
+    each generation, as references."""
+    ready = _rank_setup(mesh)
+    from repro_torch.core import streaming
+    from repro_torch.core.apriori import AprioriConfig
+    from repro_torch.data.store import open_store
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.serving import refresh as refresh_mod
+    from repro_torch.serving.gateway import Gateway
+    from repro_torch.serving.recommend import recommend
+    from repro_torch.serving.refresh import RefreshController
+    from repro_torch.serving.rulebook import Rulebook
+
+    dev = mesh.device
+    short = Mesh(tuple(mesh.shape.values()), mesh.axes, dev, timeout_s=FAULTS_TIMEOUT_S)
+    packed = np.load(paths["requests"])
+    rb0 = Rulebook.load(paths["rulebook"])
+    arm = os.path.join(paths["faults_dir"], "arm-batch")
+    out = dict(rank=short.rank, ready=ready, rebuild_s=[])
+    failing = dict(batch=0, leader=False, mine_delta=0, reduced=0)
+    saved = (Gateway._match, refresh_mod.inc.mine_delta, streaming._reduced, Mesh.twin, refresh_mod.compile_rulebook)
+    made = []
+
+    def match(gw, *args, **kwargs):   # F9: one batch raises: the follower's once the file is there,
+        if short.rank == FAULTS_FOLLOWER:   # the leader's once its load armed it
+            armed = not failing["batch"] and os.path.exists(arm)
+        else:
+            armed = short.rank == 0 and failing["leader"]
+        if armed:
+            failing["batch"] += 1
+            failing["leader"] = False
+            raise RuntimeError(f"[mesh-faults] a batch fails on rank {short.rank} on purpose")
+        return saved[0](gw, *args, **kwargs)
+
+    def mine_delta(*args, **kwargs):   # F10: the follower's first mine fails inside level 2
+        failing["mine_delta"] += 1
+        failing["reduced"] = 0
+        return saved[1](*args, **kwargs)
+
+    def reduced(*args, **kwargs):
+        failing["reduced"] += 1
+        if short.rank == FAULTS_FOLLOWER and failing["mine_delta"] == 1 and failing["reduced"] == 2:
+            out["raised_at"] = time.time()   # the host's clock, which every rank shares
+            raise RuntimeError(f"[mesh-faults] the refresh's mine fails on rank {short.rank} inside level 2")
+        return saved[2](*args, **kwargs)
+
+    def twin(m):   # the mine mesh's rebuild after a failed cycle (and its first build)
+        t = time.perf_counter()
+        new = saved[3](m)
+        out["rebuild_s"].append(time.perf_counter() - t)
+        return new
+
+    def captured(res, **kw):
+        made.append((res, saved[4](res, **kw)))
+        return made[-1][1]
+
+    Gateway._match, refresh_mod.inc.mine_delta, streaming._reduced, Mesh.twin = match, mine_delta, reduced, twin
+    refresh_mod.compile_rulebook = captured
+    ops.reset_launch_counts()
+    try:
+        gw = Gateway(rb0, mesh=short, device=dev, warmup="ladder", max_batch=64, top_k=10)
+        cfg = AprioriConfig(min_support=0.002, max_k=4, representation="packed", data_axes=("data",),
+                            model_axis="model")
+        ctl = RefreshController(paths["faults"], gw, cfg, mesh=short, device=dev, chunk_rows=STREAM_CHUNK_ROWS,
+                                min_confidence=0.4, mode="delta")
+        out["rebuild_s"] = []   # the controller's first mine mesh is not a rebuild
+        refreshes = []
+        try:
+            if short.rank == 0:
+                def submit(i):
+                    return gw.submit(packed[i])
+
+                def arm_leader():
+                    failing["leader"] = True
+
+                loads = {}
+                for name, mid in (("before", None), ("follower's batch", lambda: open(arm, "w").close()),
+                                  ("leader's batch", arm_leader), ("after", None)):
+                    gw.cache.evict_generation(gw.generation)
+                    loads[name] = _load(submit, mid)
+                out["failed_metric"] = gw.metrics.failed
+                rows = int(APPEND_FRACTION * open_store(paths["faults"]).num_transactions)
+                append_rows(paths["faults"], rows, seed=1)
+                for name in ("failing refresh", "clean refresh"):
+                    box = {}
+
+                    def refresh():
+                        box["t0"] = time.perf_counter()
+                        try:
+                            box["generation"] = ctl.refresh_now()
+                        except RuntimeError as e:
+                            box["error"] = str(e)
+                        box["t1"], box["ended_at"], box["serving"] = time.perf_counter(), time.time(), gw.generation
+
+                    refresher = threading.Thread(target=refresh, name="mesh-faults-refresh")
+                    refresher.start()
+                    passes = 0
+                    while True:   # passes of the rows until one starts after the refresh has ended
+                        ended = not refresher.is_alive()
+                        gw.cache.evict_generation(gw.generation)
+                        loads[f"{name} pass {passes}"] = _load(submit)
+                        passes += 1
+                        if ended:
+                            break
+                    refresher.join()
+                    refreshes.append(box)
+                out["loads"] = loads
+            else:
+                for _ in range(2):
+                    box = dict(t0=time.perf_counter())
+                    try:
+                        box["generation"] = ctl.refresh_now()
+                    except RuntimeError as e:
+                        box["error"] = str(e)
+                    box["t1"], box["ended_at"], box["serving"] = time.perf_counter(), time.time(), gw.generation
+                    refreshes.append(box)
+        finally:
+            gw.close()
+    finally:
+        Gateway._match, refresh_mod.inc.mine_delta, streaming._reduced, Mesh.twin = saved[:4]
+        refresh_mod.compile_rulebook = saved[4]
+    counts = ops.launch_counts()
+    out.update(k1=counts["support_count_packed"], k2=counts["rule_match"], k3=counts["support_count"],
+               refreshes=refreshes, batches=gw._batch_seq, history=ctl.history)
+    out["digest"] = digest(made[-1][0])
+    refs = [recommend(rb, packed, top_k=10, batch_size=1024, device=dev, mesh=short) for rb in (rb0, made[-1][1])]
+    if short.rank == 0:
+        out["refs"] = [(r.items, r.scores) for r in refs]
+    return out
+
+
+def mesh_faults_phase(paths, want, card):
+    """``[mesh-faults]``: F9, a failed batch on a follower and then on the
+    leader fails exactly its own requests (each naming the rank), counted
+    once in ``failed``, and every rank stays in step; F10, a refresh whose
+    mine fails inside level 2 on a follower fails on every rank within the
+    groups' timeout + 5 s with the generation kept, and the next is
+    dict-identical to ``[delta]``'s ``mine_delta`` on every rank; F11, a
+    follower's ``refresh_now`` returns the generation serving there; every
+    response bit for bit its generation's mesh ``recommend``."""
+    os.makedirs(paths["faults_dir"], exist_ok=True)
+    outs, setup_s, total_s = _spawn_mesh(mesh_faults_rank, MESH, paths)
+    lead = outs[0]
+    loads = lead["loads"]
+    for name, load in loads.items():
+        for g in sorted(set(load["gens"][load["ok"]].tolist())):
+            rows = load["ok"] & (load["gens"] == g)
+            items, scores = lead["refs"][g]
+            if not (np.array_equal(load["items"][rows], items[rows])
+                    and np.array_equal(load["scores"][rows].view(np.uint32), scores[rows].view(np.uint32))):
+                raise AssertionError(f"[mesh-faults] {name}: generation {g}'s responses differ from its mesh recommend")
+        injected = {"follower's batch": FAULTS_FOLLOWER, "leader's batch": 0}.get(name)
+        if sum(load["failed"].values()) or load["ok"].sum() + len(load["errors"]) != REQUESTS:
+            raise AssertionError(f"[mesh-faults] {name}: {load['failed']}, {load['ok'].sum()} answered, "
+                                 f"{len(load['errors'])} failed of {REQUESTS}")
+        if injected is None:
+            if load["errors"]:
+                raise AssertionError(f"[mesh-faults] {name}: {len(load['errors'])} requests failed: "
+                                     f"{load['errors'][0][:2000]}")
+        elif not load["errors"] or any(f"rank {injected}: " not in e or "fails on rank" not in e
+                                       for e in load["errors"]):
+            raise AssertionError(f"[mesh-faults] {name}: {len(load['errors'])} failed requests "
+                                 f"{load['errors'][:1]}; want one batch's, naming rank {injected}")
+    failed = sum(len(load["errors"]) for load in loads.values())
+    if lead["failed_metric"] != failed or any(o["batches"] != lead["batches"] for o in outs):
+        raise AssertionError(f"[mesh-faults] failed metric {lead['failed_metric']} for {failed} failed requests; "
+                             f"batches a rank {[o['batches'] for o in outs]}")
+    for o in outs:
+        (bad, good) = o["refreshes"]
+        if "error" not in bad or f"rank {FAULTS_FOLLOWER}" not in bad["error"] or bad["serving"] != 0 \
+                or good.get("generation") != 1 or good["serving"] != 1 or o["digest"] != want["delta"] \
+                or len(o["rebuild_s"]) != 1 or o["k1"] == 0 or o["k2"] == 0 or o["k3"]:
+            seen = [(b.get("generation"), b.get("error", "")[:300], b["serving"]) for b in o["refreshes"]]
+            raise AssertionError(f"[mesh-faults] rank {o['rank']}: refreshes {seen}, "
+                                 f"result equal to [delta]'s {o['digest'] == want['delta']}, rebuilds "
+                                 f"{o['rebuild_s']}, K1 {o['k1']}, K2 {o['k2']}, K3 {o['k3']}")
+    bad, good = lead["refreshes"]
+    fail_s = bad["t1"] - bad["t0"]
+    # from the follower's raise to the end of the failed cycle on each rank (the exchange and the rebuild in it)
+    let_go = [o["refreshes"][0]["ended_at"] - outs[FAULTS_FOLLOWER]["raised_at"] for o in outs]
+    if max(let_go) > FAULTS_TIMEOUT_S + 5:
+        raise AssertionError(f"[mesh-faults] the failed cycle ended {let_go} s after the raise")
+    passes = {name: set(load["gens"][load["ok"]].tolist()) for name, load in loads.items() if " pass " in name}
+    last = [g for name, g in passes.items() if name.startswith("clean")][-1]
+    if any(g != {0} for name, g in passes.items() if name.startswith("failing")) or last != {1} \
+            or any(not g <= {0, 1} for g in passes.values()):
+        raise AssertionError(f"[mesh-faults] generations by pass {passes}")
+
+    def line(load):
+        lat = load["latency"][load["ok"]] * 1e3
+        return (f"{load['ok'].sum()} answered, {len(load['errors'])} failed, {load['ok'].sum() / load['wall']:.0f} "
+                f"qps, p99 {np.percentile(lat, 99):.3f} ms")
+
+    log(f"[mesh-faults] (2, 2) over gloo on the one card, groups' timeout {FAULTS_TIMEOUT_S} s: setup "
+        f"{setup_s:.3f} s, whole spawn {total_s:.3f} s [{card}]")
+    for name, load in loads.items():
+        named = f"; errors name rank {FAULTS_FOLLOWER if 'follower' in name else 0}" if load["errors"] else ""
+        log(f"[mesh-faults] {name}: {line(load)}{named} [{card}]")
+    followers = " / ".join(f"{o['refreshes'][0]['t1'] - o['refreshes'][0]['t0']:.3f}" for o in outs[1:])
+    rebuilds = " / ".join(f"{o['rebuild_s'][0]:.3f}" for o in outs)
+    log(f"[mesh-faults] the failed refresh failed on every rank in {fail_s:.3f} s (the leader's refresh_now; "
+        f"the followers' {followers} s from their call); it ended on each rank "
+        f"{' / '.join(f'{t:.3f}' for t in let_go)} s after the follower's raise, generation 0 kept; the mine mesh "
+        f"rebuilt in {rebuilds} s a rank; the clean refresh {good['t1'] - good['t0']:.3f} s, generation 1 serving on "
+        "every rank when "
+        f"refresh_now returned, dict-identical to [delta]'s mine_delta; K1 "
+        f"{' / '.join(str(o['k1']) for o in outs)}, K2 {' / '.join(str(o['k2']) for o in outs)} a rank [{card}]")
+    return outs
+
+
 def mesh_cli_phase(card):
     """``[mesh-cli]``: the mine CLI under ``torchrun`` on a 2 x 2 mesh (4
     ranks on the card, gloo) prints the single-device CLI's last line,
@@ -2600,11 +2865,14 @@ def main() -> int:
         mesh_1d_phase(paths, want, mesh_passes, card)
         rec_outs = mesh_recommend_phase(paths, rec, card)
         paths.update(requests=os.path.join(root, "requests.npy"), refresh=os.path.join(root, "refresh-mesh"),
-                     rulebook_swap=os.path.join(root, "rulebook-swap.npz"))
+                     rulebook_swap=os.path.join(root, "rulebook-swap.npz"), faults=os.path.join(root, "faults-mesh"),
+                     faults_dir=os.path.join(root, "faults"))
+        shutil.copytree(paths["refresh"], paths["faults"])   # [mesh-faults] appends [delta]'s rows to it
         np.save(paths["requests"], packed)
         rb2.to_host().save(paths["rulebook_swap"])
         gw_outs = mesh_gateway_phase(paths, want, {0: (rec.items, rec.scores), 1: (want2.items, want2.scores)}, card,
                                      [o["delta"]["wall"] for o in mesh_outs])
+        mesh_faults_phase(paths, want, card)
         mesh_cli_phase(card)
         mesh_nccl_phase(streaming, ops, paths, want, mesh_passes, dev, card)
 

@@ -16,6 +16,14 @@ blocks outside the step, where JAX's ``device_get`` assembles a sharded
 array.  A float sum that must come out the same bit for bit whatever the
 payload's size or place (a served score) is :func:`ordered_sum`: gloo's
 all-reduce adds the ranks' values in an order that varies along the buffer.
+
+A step that must outlive a failure on one rank (the mesh gateway's batch)
+carries it as data: :class:`StepFaults` sends one flag a rank beside every
+block of the step's all-gathers, so a rank that failed still enters each of
+them, the ranks whose results read its part learn that it failed, and no
+collective is added.
+Every collective here is waited for by the mesh (``Mesh.wait``), so an
+aborted mesh releases its waiting ranks.
 """
 
 from __future__ import annotations
@@ -57,7 +65,7 @@ def all_reduce(x, mesh, axes, op: str = "sum"):
     group = mesh.group(axes)
 
     def reduce(t):
-        dist.all_reduce(t, op=_REDUCERS[op], group=group)
+        mesh.wait(dist.all_reduce(t, op=_REDUCERS[op], group=group, async_op=True))
         return t
 
     return _tree_map(reduce, x)
@@ -72,31 +80,95 @@ def _block_order(mesh, axes) -> list:
     return sorted(range(len(blocks)), key=blocks.__getitem__)
 
 
-def gather_blocks(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+class StepFaults:
+    """Which ranks of a mesh failed one step, carried in the step's own
+    all-gathers: each rank's block travels with one flag byte a rank, and
+    each rank ORs the flags it receives into its own.  In a step that
+    all-gathers over one axis and then over the others (the rule axis, then
+    the data axes), a flag set before the first reaches every rank; one set
+    between them reaches the ranks of the second's group.  ``gathers``
+    lists the step's all-gathers in order,
+    ``(axes, bytes of a rank's block)``.  A rank that failed calls
+    :meth:`fail`, then :meth:`drain`, which enters every all-gather it has
+    not entered yet with a block of zeros.  ``lost`` is set when an
+    all-gather itself raised (a lost peer): that is not contained."""
+
+    def __init__(self, mesh, gathers):
+        self.mesh = mesh
+        self.plan = [(tuple(a), int(n)) for a, n in gathers if mesh.group_size(tuple(a)) > 1]
+        self.flags = torch.zeros(mesh.size, dtype=torch.uint8)
+        self.entered = 0
+        self.lost = False
+
+    def fail(self) -> None:
+        self.flags[self.mesh.rank] = 1
+
+    @property
+    def ranks(self) -> list:
+        """The ranks known to have failed the step."""
+        return torch.nonzero(self.flags).flatten().tolist()
+
+    def gather(self, wire: torch.Tensor, axes) -> list:
+        """All-gather ``wire`` (this rank's block) over ``axes``, the flags
+        beside it; returns the group's blocks in group-rank order."""
+        want_axes, want_bytes = self.plan[self.entered]
+        got_bytes = wire.numel() * wire.element_size()
+        if (tuple(axes), got_bytes) != (want_axes, want_bytes):
+            raise ValueError(f"all-gather {self.entered} of the step sends {got_bytes} bytes over {tuple(axes)}; "
+                             f"its plan says {want_bytes} over {want_axes}")
+        self.entered += 1
+        raw = wire.contiguous().view(-1).view(torch.uint8)
+        flags = self.flags.to(raw.device)
+        blocks = [torch.empty(raw.numel() + flags.numel(), dtype=torch.uint8, device=raw.device)
+                  for _ in range(self.mesh.group_size(axes))]
+        try:
+            self.mesh.wait(dist.all_gather(blocks, torch.cat([raw, flags]), group=self.mesh.group(axes),
+                                           async_op=True))
+        except BaseException:
+            self.lost = True
+            raise
+        for b in blocks:
+            self.flags |= b[raw.numel():].cpu()
+        return [b[: raw.numel()].view(wire.dtype).view(wire.shape) for b in blocks]
+
+    def drain(self) -> None:
+        """Enter every all-gather of the plan this rank has not entered."""
+        while self.entered < len(self.plan):
+            axes, n = self.plan[self.entered]
+            device = "cpu" if self.mesh.backend == "gloo" else self.mesh.device
+            self.gather(torch.zeros(n, dtype=torch.uint8, device=device), axes)
+
+
+def gather_blocks(x: torch.Tensor, mesh, axes, faults: StepFaults | None = None) -> torch.Tensor:
     """The whole of a tensor split by rows over ``axes`` (this rank holds
     block ``mesh.shard(axes)``), on every rank of the group along ``axes``,
     on ``x``'s device: one all-gather.  Under gloo the blocks travel as CPU
     tensors, since gloo cannot all-gather CUDA tensors (it stages its CUDA
-    all-reduce through the host all the same); under NCCL on the card."""
+    all-reduce through the host all the same); under NCCL on the card.
+    With ``faults`` the step's fault flags travel beside the blocks."""
     axes = tuple(axes)
     if not axes or mesh.group_size(axes) == 1:
         return x
     wire = (x.cpu() if mesh.backend == "gloo" else x.to(mesh.device)).contiguous()
-    blocks = [torch.empty_like(wire) for _ in range(mesh.group_size(axes))]
-    dist.all_gather(blocks, wire, group=mesh.group(axes))
+    if faults is not None:
+        blocks = faults.gather(wire, axes)
+    else:
+        blocks = [torch.empty_like(wire) for _ in range(mesh.group_size(axes))]
+        mesh.wait(dist.all_gather(blocks, wire, group=mesh.group(axes), async_op=True))
     return torch.cat([blocks[p] for p in _block_order(mesh, axes)]).to(x.device)
 
 
-def ordered_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+def ordered_sum(x: torch.Tensor, mesh, axes, faults: StepFaults | None = None) -> torch.Tensor:
     """The sum of ``x`` over the ranks along ``axes``, added in the order of
     their blocks (``((x_0 + x_1) + x_2) ...``) on every rank: the same bits
     on every rank and whatever ``x``'s size, which a float all-reduce does
     not promise (gloo starts its ring at another rank for each part of the
-    buffer).  One all-gather of the partials."""
+    buffer).  One all-gather of the partials (with ``faults``, the step's
+    fault flags beside them)."""
     axes = tuple(axes)
     if not axes or mesh.group_size(axes) == 1:
         return x
-    parts = gather_blocks(x[None], mesh, axes)
+    parts = gather_blocks(x[None], mesh, axes, faults)
     out = parts[0].clone()
     for part in parts[1:]:
         out += part
@@ -122,23 +194,25 @@ class MapReduceJob:
 def mapreduce(job: MapReduceJob, mesh, *, on_map: Callable[[], Any] | None = None) -> Callable[..., Any]:
     """Run a :class:`MapReduceJob` on this rank of ``mesh``.
 
-    Returns ``fn(*shard_args) -> reduced``: the map on this rank's shards,
-    then the reduce over ``job.reduce_axes``; every rank of those axes gets
-    the result.  An output the map splits over another axis stays split:
-    each rank gets its own block, reduced (:func:`gather_blocks` makes it
-    whole).  ``on_map()``, if given, runs between the map and the reduce (a
-    timer's lap).
+    Returns ``fn(*shard_args, faults=None) -> reduced``: the map on this
+    rank's shards, then the reduce over ``job.reduce_axes``; every rank of
+    those axes gets the result.  An output the map splits over another axis
+    stays split: each rank gets its own block, reduced
+    (:func:`gather_blocks` makes it whole).  ``on_map()``, if given, runs
+    between the map and the reduce (a timer's lap).  ``faults`` (a
+    :class:`StepFaults`) rides the ``ordered_sum`` reduce's all-gather (an
+    all-reduce carries none).
     """
     if job.reduce_op not in _REDUCERS and job.reduce_op != "ordered_sum":
         raise ValueError(f"unknown reduce_op {job.reduce_op!r}")
     axes = tuple(job.reduce_axes)
 
-    def fn(*args):
+    def fn(*args, faults=None):
         partial = job.map_fn(*args)
         if on_map is not None:
             on_map()
         if job.reduce_op == "ordered_sum":
-            return _tree_map(lambda t: ordered_sum(t, mesh, axes), partial)
+            return _tree_map(lambda t: ordered_sum(t, mesh, axes, faults), partial)
         return all_reduce(partial, mesh, axes, job.reduce_op)
 
     return fn

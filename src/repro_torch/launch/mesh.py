@@ -26,6 +26,19 @@ collective makes the others fail within it instead of gloo's 30 minutes.
 (``DeviceMesh`` is not used: it creates its per-axis groups with the
 backend's default timeout.)
 
+Every collective of the engine (``core.mapreduce``) and of a
+:class:`Mesh`'s ``barrier``, ``all_gather_object`` and ``broadcast`` is
+waited for in slices of ``ABORT_POLL_S`` (:meth:`Mesh.wait`): between two
+slices it reads the mesh's abort key in the default group's store, so once
+any rank has called :meth:`Mesh.abort` every rank waiting in a collective
+of that mesh lets go with :class:`MeshAborted` instead of waiting out the
+groups' timeout (gloo releases no peer on its own: neither ``abort()`` nor
+destroying a group does).  An aborted mesh is done with: its groups may
+hold collectives no peer will join, so its ranks build another
+(:meth:`Mesh.twin`) and :meth:`Mesh.destroy` it.  Under NCCL a wait only
+orders the streams, so a rank held in an NCCL kernel is not released this
+way.
+
 Ranks compute on ``device``: ``"cpu"``, one card for all (``"cuda:0"``), or
 ``"cuda"``, which puts local rank ``r`` on card ``r % cards``.  The backend
 is the caller's choice and nothing switches it: gloo works on both devices
@@ -66,6 +79,8 @@ EXIT_GRACE_S = 30.0   # how long ranks that all reported may take to exit
 # death reaches the others as lost-connection errors before its exit code can
 # be read
 SILENT_DEATH_GRACE_S = 1.0
+# how often a rank waiting in a collective looks at its mesh's abort key
+ABORT_POLL_S = 0.05
 
 
 def production_mesh_shape(*, multi_pod: bool = False) -> tuple[tuple, tuple]:
@@ -126,6 +141,10 @@ class MeshLayout:
         index = tuple(slice(None) if a in key else self._coords[a] for a in self.axes)
         return tuple(int(r) for r in np.sort(grid[index], axis=None))
 
+    def wait(self, work) -> None:
+        """A layout runs no collective: ``launch.op_analysis`` records each
+        one and hands back no work to wait for."""
+
     def group_size(self, axes) -> int:
         return math.prod(self.shape[a] for a in self._key(axes))
 
@@ -145,6 +164,10 @@ class MeshLayout:
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}({self.shape}, rank={self.rank})"
+
+
+class MeshAborted(RuntimeError):
+    """A collective on a mesh let go because a rank aborted the mesh."""
 
 
 class Mesh(MeshLayout):
@@ -178,6 +201,10 @@ class Mesh(MeshLayout):
                         self._groups[tuple(self.axes[i] for i in sub)] = group
         # objects and barriers travel over gloo whatever the tensors' backend
         self._host_group = dist.new_group(list(range(self.size)), timeout=timeout, backend="gloo")
+        # this mesh's keys in the default group's store (the abort key); the
+        # group's name is the same on every rank and new with every mesh
+        self.store = dist.PrefixStore(f"mesh-{self._host_group.group_name}/",
+                                      dist.distributed_c10d._get_default_store())
 
     def twin(self) -> "Mesh":
         """A second mesh on the same ranks, shape, axes, device and timeout,
@@ -191,18 +218,58 @@ class Mesh(MeshLayout):
         on every axis outside ``axes``."""
         return self._groups[self._key(axes)]
 
+    def wait(self, work) -> None:
+        """Wait for ``work``, a collective sent with ``async_op=True`` on one
+        of this mesh's groups, in slices of ``ABORT_POLL_S``; between two,
+        raise :class:`MeshAborted` if a rank has aborted the mesh.  The
+        collective's own error (a lost peer, the groups' timeout) is
+        raised as it comes.  ``work`` is None where the collective was only
+        recorded (``launch.op_analysis``)."""
+        if work is None:
+            return
+        slice_ = datetime.timedelta(seconds=ABORT_POLL_S)
+        while True:
+            try:
+                work.wait(slice_)
+                return
+            except RuntimeError:
+                if work.is_completed():   # it ended as the slice did: its own outcome, or error
+                    work.wait()
+                    return
+            if self.store.check(["abort"]):
+                raise MeshAborted(f"{self.store.get('abort').decode()} aborted the mesh")
+
+    def abort(self, who: str) -> None:
+        """Release every rank waiting, or about to wait, in a collective of
+        this mesh (``who`` names the rank in their :class:`MeshAborted`).
+        Not a collective call.  The mesh is done with afterwards."""
+        self.store.set("abort", who)
+
+    def destroy(self) -> None:
+        """Destroy this mesh's process groups (an aborted mesh's, once its
+        replacement is built).  A collective a peer never joined is left to
+        gloo's timeout; it holds no other group."""
+        for group in {*self._groups.values(), self._host_group}:
+            dist.destroy_process_group(group)
+
     def barrier(self) -> None:
-        dist.barrier(group=self._host_group)
+        self.wait(dist.barrier(group=self._host_group, async_op=True))
 
     def all_gather_object(self, obj) -> list:
-        """Every rank's ``obj``, in rank order, on every rank (pickled)."""
-        out = [None] * self.size
-        dist.all_gather_object(out, obj, group=self._host_group)
-        return out
+        """Every rank's ``obj``, in rank order, on every rank (pickled): the
+        sizes, then the padded bytes, in two all-gathers."""
+        data = torch.frombuffer(bytearray(pickle.dumps(obj)), dtype=torch.uint8)
+        sizes = [torch.zeros(1, dtype=torch.int64) for _ in range(self.size)]
+        self.wait(dist.all_gather(sizes, torch.tensor([data.numel()]), group=self._host_group, async_op=True))
+        n = max(int(s) for s in sizes)
+        blocks = [torch.empty(n, dtype=torch.uint8) for _ in range(self.size)]
+        wire = torch.cat([data, torch.zeros(n - data.numel(), dtype=torch.uint8)])
+        self.wait(dist.all_gather(blocks, wire, group=self._host_group, async_op=True))
+        return [pickle.loads(b[: int(s)].numpy().tobytes()) for b, s in zip(blocks, sizes)]
 
     def broadcast(self, tensor: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank ``src``'s CPU ``tensor`` into every rank's, in place."""
-        dist.broadcast(tensor, src, group=self._host_group)
+        self.wait(dist.broadcast(tensor, src, group=self._host_group, async_op=True))
         return tensor
 
     def broadcast_object(self, obj=None, src: int = 0):

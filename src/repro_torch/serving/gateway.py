@@ -39,22 +39,31 @@ batch runs :func:`recommend.match_batch` on every rank: its basket block
 over ``data_axes``, K2 on its rule block, the rule blocks summed in block
 order, top-k, the blocks gathered over the data axes.  Its header names
 the generation the leader read, and a follower answers it with that
-generation's block.  A swap is two commands: the rulebook's host columns,
-each rank placing and warming its block, and an exchange of every rank's
-outcome; only when every rank holds its block does the leader commit, and
-the commit tells the followers to drop the older blocks.  A refresh from
-:class:`~repro_torch.serving.refresh.RefreshController` mines beside
-serving: one command starts the mine on every rank, which runs in a thread
-of its own on the controller's second mesh (groups of its own, so the two
-threads of a rank never share a group), and the gateway goes on answering
-batches meanwhile.  Once every rank has mined and the ranks have exchanged
-their outcomes on that mesh, the leader takes the stream, names the
-generation, and each rank places its block of its own rulebook; the commit
-follows as for a swap.  While the leader is idle it sends a heartbeat
-every quarter of the mesh's timeout, so a follower waiting for a command
-never times out.  ``close()`` on the leader resolves every admitted
-request, then stops the followers; on a follower it waits for that stop
-and for a mine in flight.  A mesh of one rank is the single-device gateway.
+generation's block.  A rank whose part of a batch raises still enters the
+batch's two all-gathers, with its fault flag set
+(``mapreduce.StepFaults``), so every rank stays in step and the leader
+learns of every failure its answer reads (a top-k failing on a rank off the
+leader's data group computed rows nobody reads, and the batch is answered
+bit for bit).  The leader fails that batch's futures naming each failed
+rank and its error (which a follower leaves in the default group's store),
+and the next batch is answered as usual.  A swap is two commands: the rulebook's
+host columns, each rank placing and warming its block, and an exchange of
+every rank's outcome; only when every rank holds its block does the leader
+commit, and the commit tells the followers to drop the older blocks.  A
+refresh from :class:`~repro_torch.serving.refresh.RefreshController` mines
+beside serving: one command starts the mine on every rank, which runs in a
+thread of its own on the controller's second mesh (groups of its own, so
+the two threads of a rank never share a group), and the gateway goes on
+answering batches meanwhile.  Once every rank has mined and the ranks have
+exchanged their outcomes (in the default group's store), the leader takes
+the stream, names the generation, and each rank places its block of its
+own rulebook; the commit follows at once, under the same lock, and a
+follower's ``refresh_now`` returns once it has applied it.  While the
+leader is idle it sends a heartbeat every quarter of the mesh's timeout, so
+a follower waiting for a command never times out.  ``close()`` on the
+leader resolves every admitted request, then stops the followers; on a
+follower it waits for that stop and for a mine in flight.  A mesh of one
+rank is the single-device gateway.
 """
 
 from __future__ import annotations
@@ -69,12 +78,13 @@ import numpy as np
 import torch
 
 from repro_torch.core import itemsets as enc
+from repro_torch.core.mapreduce import StepFaults
 from repro_torch.data.store import open_store
 from repro_torch.launch.mesh import mesh_device
 from repro_torch.serving.batcher import AdmissionRejected, MicroBatcher, Request
 from repro_torch.serving.cache import BasketCache, basket_key
 from repro_torch.serving.metrics import GatewayMetrics
-from repro_torch.serving.recommend import make_match_step, match_batch, pack_baskets
+from repro_torch.serving.recommend import batch_gathers, make_match_step, match_batch, pack_baskets
 from repro_torch.serving.rulebook import Rulebook, place_rulebook
 
 # the leader's commands to the followers
@@ -112,13 +122,14 @@ class _Commands:
     mesh's host group, whatever the ranks compute on (gloo cannot move CUDA
     tensors in every collective; the words go to the card after).
     ``lock`` is held by the leader through a command and the collectives
-    that follow it."""
+    that follow it (re-entrant: a refresh's place and commit go out under
+    one hold)."""
 
     def __init__(self, mesh, max_bucket: int, words: int):
         self.mesh, self.words = mesh, words
         self.buf = torch.zeros(2 * _HEADER + max_bucket * words, dtype=torch.int32)
         self.head = self.buf[: 2 * _HEADER].view(torch.int64)
-        self.lock = threading.Lock()
+        self.lock = threading.RLock()
         self.sent = time.monotonic()
 
     def send(self, op: int, generation: int = 0, bucket: int = 0, top_k: int = 0, rows: int = 0,
@@ -151,6 +162,7 @@ class _Mine:
     def __init__(self, gateway: "Gateway", rows: int):
         self.rows, self.t0 = rows, time.perf_counter()
         self.made: dict = {}
+        self.placed: int | None = None   # the generation placed from it, until its commit
         self.error: BaseException | None = None
         self.thread = threading.Thread(target=self._run, args=(gateway,), name="refresh-mine", daemon=True)
         self.thread.start()
@@ -268,6 +280,7 @@ class Gateway:
             # seconds of the batches served, each stage summed (every rank)
             self.mesh_timing = dict(batches=0, broadcast_s=0.0, match_s=0.0, reduce_s=0.0, gather_s=0.0)
             self._laps: list = []
+            self._batch_seq = 0   # the batches of the command stream, alike on every rank
         self.leader = self._mesh is None or mesh.rank == 0
 
         self.metrics = GatewayMetrics()
@@ -583,25 +596,64 @@ class Gateway:
             torch.cuda.synchronize(self.device)
         self._laps.append(time.perf_counter())
 
-    def _match(self, b: np.ndarray, gen: _Generation, top_k: int):
+    def _match(self, b: np.ndarray, gen: _Generation, top_k: int, faults: StepFaults | None = None):
         """Pad-free core: one padded bucket of uint32 rows to the card (as
         int32 word views), through match + top-k, and back to host arrays
         (:func:`recommend.match_batch`).  The copy back waits for the
         launches, so a caller's clock around this call spans the device
-        work.  On a mesh every rank runs it on the same bucket."""
+        work.  On a mesh every rank runs it on the same bucket, ``faults``
+        riding the batch's all-gathers."""
         if self._mesh is None:
             return match_batch(self._step, b.view(np.int32), gen.rulebook, top_k=top_k,
                                exclude_basket=self.exclude_basket)
         self._laps = [time.perf_counter()]
         out = match_batch(self._step, b.view(np.int32), gen.rulebook, top_k=top_k,
                           exclude_basket=self.exclude_basket, mesh=self._mesh, data_axes=self._data_axes,
-                          lap=self._lap)
+                          lap=self._lap, faults=faults)
         t = self._laps
         timing = self.mesh_timing
         timing["batches"] += 1
         for key, (a, z) in zip(("match_s", "reduce_s", "gather_s"), zip(t, t[1:])):
             timing[key] += z - a
         return out
+
+    def _mesh_batch(self, b: np.ndarray, generation: int, top_k: int):
+        """Every rank, one batch of the command stream: :meth:`_match` with
+        its failure carried as data.  A rank whose part raises (before,
+        between or after the batch's all-gathers) enters the ones it has
+        not, flag set, and a follower leaves its error in the store under
+        the batch's number.  Returns the leader's ``(idx, vals)``, or raises
+        on the leader, naming every failed rank and its error; on a
+        follower returns None.  An all-gather that itself fails (a lost
+        peer) raises on every rank: that stays fatal."""
+        mesh = self._mesh
+        self._batch_seq += 1
+        faults = StepFaults(mesh, batch_gathers(mesh, b.shape[0], self._words, top_k, self._data_axes,
+                                                 self._rule_axis))
+        out = None
+        try:
+            # the leader's serving generation is ``generation``: both are read under the command lock
+            gen = self._generation if self.leader else self._held[generation]
+            out = self._match(b, gen, top_k, faults)
+        except Exception:  # noqa: BLE001 — carried to every rank below
+            if faults.lost:
+                raise
+            faults.fail()
+            error = traceback.format_exc()
+            if not self.leader and faults.entered < len(faults.plan):   # else no rank learns of it
+                mesh.store.set(f"batch/{self._batch_seq}/{mesh.rank}", error)
+            faults.drain()
+        if not self.leader or not faults.ranks:
+            return out
+        errors = []
+        for r in faults.ranks:
+            if r == mesh.rank:
+                errors.append(f"rank {r}: {error}")
+                continue
+            key = f"batch/{self._batch_seq}/{r}"
+            errors.append(f"rank {r}: {mesh.store.get(key).decode()}")
+            mesh.store.delete_key(key)
+        raise RuntimeError(f"the batch failed on {len(errors)} rank(s) of the mesh:\n" + "\n".join(errors))
 
     # ---------------------------------------------------------------- mesh --
     def _heartbeat(self) -> None:
@@ -651,13 +703,11 @@ class Gateway:
         if errors:
             raise RuntimeError(f"generation {self.generation} keeps serving: the refresh's mine failed on "
                                f"{len(errors)} rank(s):\n" + "\n".join(errors))
-        with self._swap_lock:
-            with self._commands.lock:
-                self._open_stream()
-                gen_id = self._generation.generation + 1
-                self._commands.send(PLACE, gen_id)
-                gen = self._prepared(*self._prepare_everywhere(gen_id, lambda: made["rulebook"]))
-            self.commit_swap(gen)
+        with self._swap_lock, self._commands.lock:   # the commit follows the place at once
+            self._open_stream()
+            gen_id = self._generation.generation + 1
+            self._commands.send(PLACE, gen_id)
+            self.commit_swap(self._prepared(*self._prepare_everywhere(gen_id, lambda: made["rulebook"])))
         return gen_id, made, rows
 
     def _open_stream(self) -> None:
@@ -683,7 +733,7 @@ class Gateway:
                 op, generation, bucket, top_k, rows, sent_s, b = self._commands.recv()
                 if op == BATCH:
                     self.mesh_timing["broadcast_s"] += sent_s
-                    self._match(b, self._held[generation], top_k)
+                    self._mesh_batch(b, generation, top_k)
                 elif op == PREPARE:
                     host = self._mesh.broadcast_object()
                     gen, _ = self._prepare_everywhere(generation, lambda: host)
@@ -692,6 +742,11 @@ class Gateway:
                 elif op == COMMIT:
                     self._generation = self._held[generation]
                     self._held = {generation: self._generation}
+                    mine = self._mine
+                    if mine is not None and mine.placed == generation:   # the refresh's commit
+                        mine.placed = None
+                        self._refresher._followed(generation, [], mine.made, mine.rows,
+                                                  time.perf_counter() - mine.t0)
                 elif op == MINE:
                     with self._attached:
                         if not self._attached.wait_for(lambda: self._refresher is not None,
@@ -706,10 +761,11 @@ class Gateway:
                     if mine is None or "rulebook" not in mine.made:
                         raise RuntimeError("the leader places a refresh this rank has not mined")
                     gen, errors = self._prepare_everywhere(generation, lambda: mine.made["rulebook"])
-                    if gen is not None:
-                        self._held[generation] = gen
-                    self._refresher._followed(generation, errors, mine.made, mine.rows,
-                                              time.perf_counter() - mine.t0)
+                    if errors:   # the leader commits nothing: the cycle ends here
+                        self._refresher._followed(generation, errors, mine.made, mine.rows,
+                                                  time.perf_counter() - mine.t0)
+                    else:        # it ends at the commit that follows
+                        self._held[generation], mine.placed = gen, generation
                 elif op == STOP:
                     return
         except BaseException as e:  # noqa: BLE001 — close() re-raises it
@@ -738,7 +794,7 @@ class Gateway:
                 t_send = time.perf_counter()
                 self._commands.send(BATCH, gen.generation, bucket, k, len(group), b)
                 self.mesh_timing["broadcast_s"] += time.perf_counter() - t_send
-                idx, vals = self._match(b, gen, k)
+                idx, vals = self._mesh_batch(b, gen.generation, k)
         t_dev = time.perf_counter()
         tr = self._tracer
         if tr is not None:

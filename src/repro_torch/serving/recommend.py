@@ -94,8 +94,18 @@ def _to_host(idx: torch.Tensor, vals: torch.Tensor, m: int):
     return idx.cpu().numpy()[:m], vals.cpu().numpy()[:m]
 
 
+def batch_gathers(mesh, rows: int, words: int, top_k: int, data_axes: tuple = ("data",),
+                  rule_axis: str = "model") -> list:
+    """The all-gathers :func:`match_batch` sends on a mesh for a batch of
+    ``rows`` baskets of ``words`` words, each ``(axes, bytes a rank
+    sends)``: the rule axis's partial scores (``ordered_sum``), then the
+    data axes' top-k ids and scores.  A ``StepFaults`` plan."""
+    local = rows // mesh.shard(tuple(data_axes))[1]
+    return [((rule_axis,), local * 32 * words * 4), (tuple(data_axes), local * 2 * top_k * 4)]
+
+
 def match_batch(step, blk: np.ndarray, rb: Rulebook, *, top_k: int, exclude_basket: bool, mesh=None,
-                data_axes: tuple = ("data",), lap=None):
+                data_axes: tuple = ("data",), lap=None, faults=None):
     """One padded batch of int32 basket words (host, (B, W)) through match
     and top-k: ``(idx int32, vals float32)`` numpy arrays of all B rows.
 
@@ -104,11 +114,14 @@ def match_batch(step, blk: np.ndarray, rb: Rulebook, *, top_k: int, exclude_bask
     matches it against its rule block and sums the rule blocks, it takes
     the top-k of its rows, and one all-gather over the data axes hands
     every rank the whole batch's.  ``lap(name)``, if given, is called after
-    the top-k ("topk") and after that gather ("gather")."""
+    the top-k ("topk") and after that gather ("gather").  ``faults`` (a
+    ``mapreduce.StepFaults`` of :func:`batch_gathers`) rides both
+    all-gathers: the caller reads ``faults.ranks`` after."""
     if mesh is not None:
         blk = shard_rows(blk, mesh, data_axes)
     blk_dev = _to_device(blk, rb.device)
-    item_scores = step(blk_dev, rb.ante_packed, rb.ante_len, rb.cons_packed, rb.scores)
+    cols = (rb.ante_packed, rb.ante_len, rb.cons_packed, rb.scores)
+    item_scores = step(blk_dev, *cols) if faults is None else step(blk_dev, *cols, faults=faults)
     idx, vals = _topk_items(item_scores, blk_dev, top_k=top_k, exclude_basket=exclude_basket,
                             num_items=rb.num_items)
     if lap is not None:
@@ -116,7 +129,7 @@ def match_batch(step, blk: np.ndarray, rb: Rulebook, *, top_k: int, exclude_bask
     if mesh is None:
         return _to_host(idx, vals, blk.shape[0])
     # ids and the float bits of the scores travel as one int32 block
-    both = gather_blocks(torch.cat([idx, vals.view(torch.int32)], dim=1).cpu(), mesh, data_axes)
+    both = gather_blocks(torch.cat([idx, vals.view(torch.int32)], dim=1).cpu(), mesh, data_axes, faults)
     if lap is not None:
         lap("gather")
     both = both.numpy()

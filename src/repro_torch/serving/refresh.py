@@ -33,18 +33,25 @@ watermark hysteresis.  A cycle mines beside serving, as the JAX package's
 does: the leader sends one command that starts the mine on every rank, and
 each rank runs the delta mine (or the full one) on the mine mesh in a
 thread of its own (on the card, on a CUDA stream of its own), compiles the
-same rulebook (compiling is deterministic) and exchanges its outcome there,
-while the gateway goes on answering batches with the serving generation.
-Only then does the leader take the command stream, name the generation,
-have every rank place its block of its own rulebook, and commit once every
-rank holds it.  A cycle that fails on any rank fails on every rank, and the
-previous generation keeps serving.  ``refresh_now()`` is a collective call:
-on the leader it drives a cycle, on a follower it waits for the cycle the
-leader drives next and returns its generation.
+same rulebook (compiling is deterministic), while the gateway goes on
+answering batches with the serving generation.  The ranks then exchange
+their outcomes in the default group's store, keyed by the cycle, never on
+the mine mesh.  Only then does the leader take the command stream, name the
+generation, have every rank place its block of its own rulebook, and commit
+once every rank holds it.  A cycle that fails on any rank fails on every
+rank, and the previous generation keeps serving: a rank that raises aborts
+the mine mesh (``Mesh.abort``), so the ranks waiting in one of its
+collectives let go within ``launch.mesh.ABORT_POLL_S``, and every rank then
+replaces the mine mesh (``Mesh.twin``) and destroys the old one's groups
+before the cycle ends, so the next cycle mines on groups no collective is
+left in.  ``refresh_now()`` is a collective call: on the leader it drives a
+cycle, on a follower it waits for the cycle the leader drives next and
+returns its generation once that generation serves there.
 """
 
 from __future__ import annotations
 
+import datetime
 import threading
 import time
 import traceback
@@ -55,7 +62,7 @@ from repro_torch.core import apriori as ap
 from repro_torch.core import incremental as inc
 from repro_torch.core import streaming as st
 from repro_torch.data.store import open_store
-from repro_torch.launch.mesh import mesh_device
+from repro_torch.launch.mesh import MeshAborted, mesh_device
 from repro_torch.serving.metrics import _RegistryMetrics
 from repro_torch.serving.rulebook import compile_rulebook
 
@@ -187,6 +194,7 @@ class RefreshController:
         # collective of the mine shares a group with serving's
         self.mine_mesh = mesh.twin() if self._on_mesh else mesh
         self._stream = None
+        self._cycles = 0   # the mine cycles run, alike on every rank
         if self._on_mesh:
             if self.device.type == "cuda":
                 self._stream = torch.cuda.Stream(self.device)
@@ -284,14 +292,17 @@ class RefreshController:
         """Every rank of a mesh, beside serving: check that each sees the
         store at the leader's ``rows``, mine and compile into ``made``
         (collective calls on :attr:`mine_mesh`, launches on this
-        controller's CUDA stream), then exchange every rank's outcome on
-        the mine mesh.  Returns the ranks' errors: a rank that failed fails
-        the cycle on every rank.  ``made`` is filled before the exchange,
-        so once the leader is past it every rank's rulebook is ready to
-        place.  Every rank reaches the exchange, whatever failed before
-        it, or the others would wait there (a rank that fails inside one of
-        the mine's own collectives leaves the others waiting in it until
-        the groups' timeout)."""
+        controller's CUDA stream), then exchange every rank's outcome
+        (:meth:`_exchange`).  Returns the ranks' errors: a rank that failed
+        fails the cycle on every rank.  ``made`` is filled before the
+        exchange, so once the leader is past it every rank's rulebook is
+        ready to place.  A rank that raises aborts the mine mesh, so a rank
+        waiting in one of the mine's collectives lets go at once (with no
+        error of its own: the aborting rank's is the cycle's); once a
+        cycle has failed every rank replaces the mine mesh before it
+        returns."""
+        self._cycles += 1
+        error = None
         try:
             with torch.cuda.stream(self._stream):
                 try:
@@ -302,10 +313,36 @@ class RefreshController:
                 if any(v != rows for v in views):
                     raise RuntimeError(f"the leader refreshes the store at {rows} rows; the ranks see {views}")
                 made["rulebook"], made["report"] = self._mine_and_compile(open_store(self.store_path))
-            error = None
+        except MeshAborted:   # a peer failed: its error is the cycle's
+            pass
         except Exception:  # noqa: BLE001 — reported to every rank below
             error = f"rank {self.mesh.rank}: {traceback.format_exc()}"
-        return [e for e in self.mine_mesh.all_gather_object(error) if e is not None]
+            self.mine_mesh.abort(f"rank {self.mesh.rank}")
+        errors = self._exchange(error)
+        if errors:
+            # a collective call, reached by every rank in this cycle, before
+            # the next MINE command: the old groups may hold a collective
+            # that no peer will join
+            old, self.mine_mesh = self.mine_mesh, self.mine_mesh.twin()
+            old.destroy()
+        return errors
+
+    def _exchange(self, error: str | None) -> list:
+        """Every rank's outcome of this cycle, through the default group's
+        store under the cycle's number (the mine mesh's groups may be
+        broken by now): this rank's is set, the others' awaited for at most
+        the groups' timeout.  Returns the errors."""
+        store, n, rank = self.mesh.store, self._cycles, self.mesh.rank
+        store.set(f"refresh/{n}/{rank}", error or "")
+        if n > 2:   # every rank read cycle n - 2's outcomes before this cycle began
+            store.delete_key(f"refresh/{n - 2}/{rank}")
+        keys = [f"refresh/{n}/{r}" for r in range(self.mesh.size)]
+        try:
+            store.wait(keys, datetime.timedelta(seconds=self.mine_mesh.timeout_s))
+        except RuntimeError as e:   # the store's timeout: a rank that never reported fails the cycle
+            return [f"rank {rank}: the ranks' outcomes of refresh cycle {n} did not all arrive within "
+                    f"{self.mine_mesh.timeout_s} s: {e}"]
+        return [e for e in (store.get(k).decode() for k in keys) if e]
 
     def _mine_and_compile(self, store):
         """The cycle's mine (on a mesh, a collective call on the mine mesh)

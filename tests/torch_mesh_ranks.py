@@ -301,9 +301,9 @@ def _answered(log):
 
     match = Gateway._match
 
-    def logged(self, b, gen, top_k):
+    def logged(self, b, gen, top_k, *args):
         log.append((gen.generation, int(b.shape[0])))
-        return match(self, b, gen, top_k)
+        return match(self, b, gen, top_k, *args)
 
     return match, logged
 
@@ -371,7 +371,9 @@ class GroupLog:
     ``torch.distributed``: whether it came from a refresh's mine cycle
     (``RefreshController._mine_cycle``) and the id of its group (None: the
     default group), and every overlap: a collective entered on a group
-    while another thread's collective is still in it."""
+    while another thread's collective is still in it (one sent with
+    ``async_op=True`` is in its group until it completes: the log waits for
+    it), and every mine mesh a failed cycle built (``Mesh.twin``)."""
 
     NAMES = ("all_reduce", "all_gather", "broadcast", "all_gather_object", "broadcast_object_list", "barrier")
 
@@ -385,6 +387,13 @@ class GroupLog:
         lock, local = threading.Lock(), threading.local()
         self.saved = {name: getattr(dist, name) for name in self.NAMES}
         self.mine_cycle = RefreshController._mine_cycle
+        from repro_torch.launch.mesh import Mesh
+
+        self.mesh_cls, self.twin, self.twins = Mesh, Mesh.twin, []
+
+        def twin(mesh):
+            self.twins.append(self.twin(mesh))
+            return self.twins[-1]
 
         def wrap(name, fn):
             def run(*args, **kwargs):
@@ -396,7 +405,10 @@ class GroupLog:
                     busy[key] = me
                     self.calls.append((getattr(local, "mine", False), key))
                 try:
-                    return fn(*args, **kwargs)
+                    work = fn(*args, **kwargs)
+                    if kwargs.get("async_op") and work is not None:
+                        work.wait()
+                    return work
                 finally:
                     with lock:
                         busy[key] = None
@@ -413,19 +425,26 @@ class GroupLog:
         for name, fn in self.saved.items():
             setattr(dist, name, wrap(name, fn))
         RefreshController._mine_cycle = marked
+        Mesh.twin = twin
         return self
 
     def __exit__(self, *exc):
         for name, fn in self.saved.items():
             setattr(self.dist, name, fn)
         self.cls._mine_cycle = self.mine_cycle
+        self.mesh_cls.twin = self.twin
 
     def report(self, serving_mesh, mine_mesh) -> dict:
-        """The calls on each mesh's groups, and those on a wrong one."""
-        ids = {m: {id(g) for g in [*m._groups.values(), m._host_group]} for m in (serving_mesh, mine_mesh)}
-        wrong = [(mine, key) for mine, key in self.calls if key not in ids[mine_mesh if mine else serving_mesh]]
+        """The calls on each mesh's groups (the mine's: ``mine_mesh``, the
+        one the log began with, and every mine mesh built within the log),
+        and those on a wrong one."""
+        def ids(*meshes):
+            return {id(g) for m in meshes for g in [*m._groups.values(), m._host_group]}
+
+        serving, mine = ids(serving_mesh), ids(mine_mesh, *self.twins)
+        wrong = [(m, key) for m, key in self.calls if key not in (mine if m else serving)]
         return dict(mine=sum(m for m, _ in self.calls), serving=sum(not m for m, _ in self.calls), wrong=wrong,
-                    overlaps=self.overlaps, shared=sorted(ids[serving_mesh] & ids[mine_mesh]))
+                    overlaps=self.overlaps, shared=sorted(serving & mine))
 
 
 def _in_thread(fn):
@@ -574,6 +593,7 @@ def mesh_gateway(mesh, rb0, rb1, baskets, store_path, cfg, top_k, max_batch, cli
             out["kept"] = gw.generation
             out["refreshed"] = ctl.refresh_now()
 
+        first_mine = ctl.mine_mesh   # a failed cycle replaces it
         with held, GroupLog() as groups:
             if mesh.rank == 0:
                 out["load"] = _drive(gw, baskets, clients, mid=lambda: gw.hot_swap(rb1))
@@ -590,7 +610,7 @@ def mesh_gateway(mesh, rb0, rb1, baskets, store_path, cfg, top_k, max_batch, cli
             answered = len(log)   # the followers' logs are cut to rank 0's below
             out["history"], out["failures"], res2_rb2 = list(ctl.history), ctl.metrics.failures, made[-1]
             _held_cycles(mesh, gw, ctl, held, baskets, rb1, store_path, made, out)
-        out["groups"] = groups.report(mesh, ctl.mine_mesh)
+        out["groups"] = groups.report(mesh, first_mine)
         out["threads_after_close"] = _live_threads()
     finally:
         Gateway._match, refresh_mod.compile_rulebook = match, compile_rulebook
@@ -695,3 +715,217 @@ def mesh_refresh_idle(mesh, rb, baskets, store_path, cfg, timeout_s, idle_s):
         refresh_mod.compile_rulebook = compile_rulebook
     return dict(refreshed=refreshed, got=got, result=made[-1].as_dict(), mode=ctl.history[-1]["mode"],
                 timeouts=(short.timeout_s, ctl.mine_mesh.timeout_s))
+
+
+# ------------------------------------------------- faults on the mesh tier --
+def _short_mesh(mesh, timeout_s):
+    """A mesh on ``mesh``'s ranks whose groups time out after ``timeout_s``."""
+    from repro_torch.launch.mesh import Mesh
+
+    return Mesh(tuple(mesh.shape.values()), mesh.axes, mesh.device, timeout_s=timeout_s)
+
+
+class FailingBatches:
+    """Within ``with``: this process's ``Gateway._match``, its calls counted
+    from 1 (one a batch, on every rank).  ``plan`` maps a call to the ranks
+    that fail it and where: ``"match"`` raises as ``_match`` starts, before
+    the batch's all-gathers; ``"topk"`` raises in the top-k, between the
+    rule axis's all-gather and the data axes'."""
+
+    def __init__(self, rank, plan):
+        self.rank, self.plan, self.calls = rank, plan, 0
+
+    def __enter__(self):
+        import importlib
+
+        from repro_torch.serving.gateway import Gateway
+
+        rec_mod = importlib.import_module("repro_torch.serving.recommend")   # the package's name is the function
+        self.gateway, self.rec_mod = Gateway, rec_mod
+        self.match, self.topk = Gateway._match, rec_mod._topk_items
+
+        def match(gw, *args, **kwargs):
+            self.calls += 1
+            if self.plan.get(self.calls, {}).get(self.rank) == "match":
+                raise RuntimeError(f"batch {self.calls} fails on rank {self.rank} before its all-gathers")
+            return self.match(gw, *args, **kwargs)
+
+        def topk(*args, **kwargs):
+            if self.plan.get(self.calls, {}).get(self.rank) == "topk":
+                raise RuntimeError(f"batch {self.calls} fails on rank {self.rank} between its all-gathers")
+            return self.topk(*args, **kwargs)
+
+        Gateway._match, rec_mod._topk_items = match, topk
+        return self
+
+    def __exit__(self, *exc):
+        self.gateway._match, self.rec_mod._topk_items = self.match, self.topk
+
+
+def _outcomes(futures, wait_s=ANSWER_S):
+    """Each future's response, or the text of its error."""
+    got = []
+    for f in futures:
+        try:
+            got.append(f.result(wait_s))
+        except Exception as e:  # noqa: BLE001 — the test reads it
+            got.append(f"{type(e).__name__}: {e}")
+    return got
+
+
+def mesh_failing_batches(mesh, rb, baskets, top_k, max_batch, timeout_s, plan, clients):
+    """A mesh gateway on groups that time out after ``timeout_s``, every
+    rank failing the batches ``plan`` names (:class:`FailingBatches`).  Rank
+    0 sends 15 baskets one at a time (a batch each), then the rest from
+    ``clients`` threads at once.  Every rank closes its gateway,
+    then runs the mesh ``recommend`` of each bucket rank 0 answered with."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.serving.gateway import Gateway
+
+    torch.set_num_threads(1)
+    short = _short_mesh(mesh, timeout_s)
+    one_by_one = 15
+    out = dict(rank=short.rank)
+    with FailingBatches(short.rank, plan) as failing:
+        gw = Gateway(rb, mesh=short, device="cpu", top_k=top_k, max_batch=max_batch, max_wait_ms=2.0)
+        if short.rank == 0:
+            out["alone"] = [_outcomes([gw.submit(np.flatnonzero(b).tolist())])[0] for b in baskets[:one_by_one]]
+            rest = baskets[one_by_one:]
+            with ThreadPoolExecutor(max_workers=clients) as pool:
+                out["together"] = [f.result() for f in [
+                    pool.submit(lambda idx: [_outcomes([gw.submit(np.flatnonzero(rest[i]).tolist())])[0]
+                                             for i in idx], range(c, len(rest), clients))
+                    for c in range(clients)]]
+            out["failed_metric"] = gw.metrics.failed
+        try:
+            gw.close()
+            out["closed"] = True
+        except Exception as e:  # noqa: BLE001 — the test reads it
+            out["closed"] = f"{type(e).__name__}: {e}"
+        out["batches"], out["calls"] = getattr(gw, "_batch_seq", None), failing.calls
+    buckets = None
+    if short.rank == 0:
+        answered = [r for r in out["alone"] + [r for c in out["together"] for r in c] if not isinstance(r, str)]
+        buckets = sorted({r.bucket for r in answered})
+    buckets = short.broadcast_object(buckets)
+    refs = {b: recommend(rb, baskets, top_k=top_k, batch_size=b, device="cpu", mesh=short) for b in buckets}
+    out["refs"] = {b: (r.items, r.scores) for b, r in refs.items()}
+    return out
+
+
+class FailingMines:
+    """Within ``with``: this process's ``incremental.mine_delta``, its calls
+    counted from 1 (one a refresh cycle, on every rank).  In a call named
+    in ``failing`` this rank's second ``streaming._reduced`` (the union
+    count's level 2, between its all-reduce and the level before's
+    all-gather) writes ``<call>-held-<rank>`` into ``hold_dir``, waits for
+    ``<call>-release`` (at most ``HOLD_S``) and raises."""
+
+    def __init__(self, rank, hold_dir, failing):
+        self.rank, self.hold_dir, self.failing, self.calls, self.armed = rank, hold_dir, failing, 0, 0
+
+    def __enter__(self):
+        from repro_torch.core import streaming
+
+        self.streaming, self.mine_delta, self.reduced = streaming, inc.mine_delta, streaming._reduced
+
+        def mine_delta(*args, **kwargs):
+            self.calls += 1
+            self.armed = 2 if self.calls in self.failing else 0
+            return self.mine_delta(*args, **kwargs)
+
+        def reduced(*args, **kwargs):
+            if self.armed:
+                self.armed -= 1
+                if not self.armed:
+                    _touch(os.path.join(self.hold_dir, f"{self.calls}-held-{self.rank}"))
+                    _wait_files([os.path.join(self.hold_dir, f"{self.calls}-release")])
+                    raise RuntimeError(f"mine {self.calls} fails on rank {self.rank} inside level 2")
+            return self.reduced(*args, **kwargs)
+
+        inc.mine_delta, streaming._reduced = mine_delta, reduced
+        return self
+
+    def __exit__(self, *exc):
+        inc.mine_delta, self.streaming._reduced = self.mine_delta, self.reduced
+
+
+def mesh_failing_refresh(mesh, rb, baskets, store_path, cfg, timeout_s, hold_dir, failing_rank, appended):
+    """A mesh gateway and its refresh controller (delta mode) on groups that
+    time out after ``timeout_s``, four cycles on every rank: the first and
+    third fail on ``failing_rank`` inside level 2 of the mine (held there
+    while rank 0 sends baskets with a deadline), the second and fourth are
+    clean; before the third rank 0 appends ``appended`` to the store.  Rank
+    0's commits wait 0.3 s, so a follower whose ``refresh_now`` returned
+    before its commit would read the old generation.  Every rank records
+    each cycle's outcome and ``gw.generation`` right after it, and the mine
+    mesh's host group; rank 0 the requests and the time each failed cycle
+    took to fail from the release."""
+    from repro_torch.serving import refresh as refresh_mod
+    from repro_torch.serving.gateway import Gateway
+    from repro_torch.serving.refresh import RefreshController
+
+    torch.set_num_threads(1)
+    short = _short_mesh(mesh, timeout_s)
+    made = []
+    compile_rulebook, commit_swap = refresh_mod.compile_rulebook, Gateway.commit_swap
+
+    def captured(res, **kw):
+        rb_made = compile_rulebook(res, **kw)
+        made.append((res, rb_made))
+        return rb_made
+
+    def slow_commit(gw, prepared):
+        time.sleep(0.3)
+        return commit_swap(gw, prepared)
+
+    refresh_mod.compile_rulebook = captured
+    if short.rank == 0:
+        Gateway.commit_swap = slow_commit
+    out = dict(rank=short.rank, cycles=[], mine_groups=[])
+    try:
+        with FailingMines(short.rank, hold_dir, {1, 3} if short.rank == failing_rank else set()):
+            gw = Gateway(rb, mesh=short, device="cpu", top_k=5, max_batch=8, max_wait_ms=2.0)
+            ctl = RefreshController(store_path, gw, cfg, mesh=short, device="cpu", min_confidence=0.4,
+                                    chunk_rows=64)
+            out["mine_groups"].append(ctl.mine_mesh._host_group.group_name)
+            for cycle in (1, 2, 3, 4):
+                if cycle == 3 and short.rank == 0:
+                    append_chunks(iter([appended]), store_path)
+                if short.rank == 0 and cycle in (1, 3):
+                    refresher, box = _in_thread(ctl.refresh_now)
+                    _wait_files([os.path.join(hold_dir, f"{cycle}-held-{failing_rank}")])
+                    held = _answers(gw, baskets[:8])
+                    t0 = time.perf_counter()
+                    _touch(os.path.join(hold_dir, f"{cycle}-release"))
+                    refresher.join(HOLD_S)
+                    outcome = dict(error=box.get("error"), value=box.get("value"), held=held,
+                                   fail_s=time.perf_counter() - t0, after=_answers(gw, baskets[8:16]))
+                else:
+                    try:
+                        outcome = dict(value=ctl.refresh_now())
+                    except RuntimeError as e:
+                        outcome = dict(error=str(e))
+                outcome["generation"] = gw.generation
+                out["cycles"].append(outcome)
+                out["mine_groups"].append(ctl.mine_mesh._host_group.group_name)
+            if short.rank == 0:
+                out["last"] = _answers(gw, baskets[:16])
+            gw.close()
+    finally:
+        refresh_mod.compile_rulebook, Gateway.commit_swap = compile_rulebook, commit_swap
+    out["results"] = [res.as_dict() for res, _ in made]
+    out["history"] = ctl.history
+    out["threads_after_close"] = _live_threads()
+    # references: each generation's mesh recommend at each bucket rank 0 answered with
+    keys = None
+    if short.rank == 0:
+        answered = [r for c in out["cycles"] if "held" in c for r in c["held"][0] + c["after"][0]]
+        keys = sorted({(r.generation, r.bucket) for r in answered + out["last"][0] if r is not None})
+    keys = short.broadcast_object(keys)
+    rbs = {0: rb, **{g: rb_made for g, (_, rb_made) in enumerate(made, 1)}}   # the clean cycles' rulebooks
+    out["refs"] = {key: (lambda r: (r.items, r.scores))(recommend(rbs[key[0]], baskets, top_k=5,
+                                                                  batch_size=key[1], device="cpu", mesh=short))
+                   for key in keys if key[0] in rbs}
+    return out
