@@ -84,6 +84,20 @@ each with its own CUDA context, every rank's result checked:
   refresh on every rank, dict-identical to ``[delta]``'s ``mine_delta``,
   whose ``refresh_now`` returns the generation that serves on every rank;
   qps and p99 of each load and of the passes sent while each refresh runs;
+* ``[mesh-router]`` and ``[mesh-refresh-router]`` (the replicated tier on
+  the mesh), one more spawn of the 2 x 2 mesh, each stage on its own copy
+  of the refresh store and under ``[gateway]``'s load: ``Router(rb, 2,
+  mesh=mesh)`` on every rank, replica 0's dispatch worker killed and a
+  coordinated swap to the 21,334-rule rulebook at half load, then
+  ``[delta]``'s 5,000 rows appended and ``RefreshController(router,
+  mesh=mesh).refresh_now()`` on every rank while the clients send passes;
+  then ``Router(rb, 3)`` of single-device gateways on rank 0, refreshed by
+  the same kind of controller on every rank (the others pass None) under
+  the same rows and load: zero drops, every response bit for bit its
+  generation's mesh (or single-device) ``recommend``, every replica healthy
+  on one generation after the refresh, each rank's refresh dict-identical
+  to ``[delta]``'s ``mine_delta``, K1 on every rank, K2 on every rank that
+  serves, and K2 at each rank's blocks bit for bit ``rule_match_ordered``;
 * ``[mesh-cli]``: the mine CLI under ``torchrun`` on a 2 x 2 mesh prints the
   single-device CLI's last line;
 * ``[mesh-nccl]``: ``[mesh]`` over NCCL, one rank a card, only where the
@@ -2013,7 +2027,7 @@ def mesh_gateway_rank(mesh, paths):
     ready = _rank_setup(mesh)
     from repro_torch.core.apriori import AprioriConfig
     from repro_torch.data.store import open_store
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.serving import refresh as refresh_mod
     from repro_torch.serving.gateway import Gateway
     from repro_torch.serving.recommend import recommend
@@ -2122,24 +2136,35 @@ def mesh_gateway_rank(mesh, paths):
         out["refs"] = [(r.items, r.scores) for r in refs]
         single = recommend(place_rulebook(rb2, dev), packed, top_k=10, batch_size=1024, device=dev)
         out["single2"] = (single.items, single.scores)
-    # K2 at this rank's blocks of a full bucket (32 of its 64 baskets, its
-    # rule block of generation 0) against its plain versions, then timed
-    # one rank at a time
-    from repro_torch.core.mapreduce import shard_rows
+    out["k2_block"] = _k2_at_blocks(mesh, rbs[0], packed, dev)
+    return out
 
-    placed = place_rulebook(rbs[0], dev, mesh=mesh)
-    b = torch.from_numpy(np.ascontiguousarray(shard_rows(packed[:64].view(np.int32), mesh, ("data",)))).to(dev)
+
+def _k2_at_blocks(mesh, rb, packed, dev):
+    """K2 on ``dev`` at this rank's blocks of a full bucket (its share of 64
+    baskets, its rule block of ``rb``; with ``mesh`` None, the whole of
+    both) against its plain versions, then timed one rank at a time."""
+    from repro_torch.core.mapreduce import shard_rows
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving.rulebook import place_rulebook
+
+    placed = place_rulebook(rb, dev, mesh=mesh)
+    rows = packed[:64].view(np.int32)
+    if mesh is not None:
+        rows = shard_rows(rows, mesh, ("data",))
+    b = torch.from_numpy(np.ascontiguousarray(rows)).to(dev)
     cols = (placed.ante_packed, placed.ante_len, placed.cons_packed, placed.scores)
     got = ops.rule_match(b, *cols, impl="kernel")
     plain, ordered = ops.rule_match(b, *cols, impl="ref"), ref.rule_match_ordered(b, *cols)
     torch.cuda.synchronize()
-    out["k2_block"] = dict(baskets=int(b.shape[0]), rules=int(cols[0].shape[0]),
-                           max_abs_err=float((got - plain).abs().max().item()), ordered=bool(torch.equal(got, ordered)),
-                           ms=_one_rank_at_a_time(mesh, lambda: (ops.rule_match(b, *cols),
-                                                               cuda_ms(lambda: ops.rule_match(b, *cols), 50))[1]),
-                           plain_ms=_one_rank_at_a_time(mesh, lambda: cuda_ms(lambda: ops.rule_match(b, *cols,
-                                                                                                   impl="ref"), 5)))
-    return out
+
+    def alone(fn):
+        return fn() if mesh is None else _one_rank_at_a_time(mesh, fn)
+
+    return dict(baskets=int(b.shape[0]), rules=int(cols[0].shape[0]),
+                max_abs_err=float((got - plain).abs().max().item()), ordered=bool(torch.equal(got, ordered)),
+                ms=alone(lambda: (ops.rule_match(b, *cols), cuda_ms(lambda: ops.rule_match(b, *cols), 50))[1]),
+                plain_ms=alone(lambda: cuda_ms(lambda: ops.rule_match(b, *cols, impl="ref"), 5)))
 
 
 def mesh_gateway_phase(paths, want, want_by_gen, card, quiet_mine_s):
@@ -2493,6 +2518,331 @@ def mesh_faults_phase(paths, want, card):
         f"refresh_now returned, dict-identical to [delta]'s mine_delta; K1 "
         f"{' / '.join(str(o['k1']) for o in outs)}, K2 {' / '.join(str(o['k2']) for o in outs)} a rank [{card}]")
     return outs
+
+
+# The replicated tier on the mesh (F12, F13): one more spawn of the 2 x 2
+# mesh, two stages, each on its own copy of the store [delta] built its count
+# cache in, with [delta]'s 5,000 rows appended under load.
+ROUTER_MESH_REPLICAS = 2     # [mesh-router]: Router(rb, 2, mesh=mesh)
+ROUTER_SINGLE_REPLICAS = 3   # [mesh-refresh-router]: Router(rb, 3) on rank 0, as [router]
+
+
+def _router_healthy(router, generation, timeout=60.0):
+    """Leader: wait until every replica is healthy at ``generation``; the
+    router's stats then (or at the timeout: the caller checks them)."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        stats = router.stats()
+        if all(r["state"] == "healthy" and r["generation"] == generation for r in stats["replicas"]) \
+                or time.perf_counter() > deadline:
+            return stats
+        time.sleep(0.02)
+
+
+def _passes_during_refresh(ctl, submit, evict):
+    """Leader: ``ctl.refresh_now()`` in a thread while the clients send the
+    rows in passes (:func:`_load`, each after ``evict()`` empties the
+    caches, so batches answer it) until a pass starts after the refresh has
+    ended.  Returns (its generation, its (start, end) on this rank's clock,
+    the passes)."""
+    box = {}
+
+    def refresh():
+        box["t0"] = time.perf_counter()
+        try:
+            box["generation"] = ctl.refresh_now()
+        except BaseException as e:  # noqa: BLE001 — raised below
+            box["error"] = e
+        box["t1"] = time.perf_counter()
+
+    refresher = threading.Thread(target=refresh, name="mesh-router-refresh")
+    refresher.start()
+    passes = []
+    while True:
+        ended = not refresher.is_alive()
+        evict()
+        passes.append(_load(submit))
+        if ended:
+            break
+    refresher.join()
+    if "error" in box:
+        raise box["error"]
+    return box["generation"], (box["t0"], box["t1"]), passes
+
+
+def _router_stage(mesh, paths, rbs, cfg, out_made, replicas, on_mesh):
+    """One stage of :func:`mesh_router_rank`: build the router (on every
+    rank, or on rank 0 alone) and its mesh ``RefreshController`` in delta
+    mode, the launch counts set to 0 just before and read after both are
+    closed.  Rank 0 sends the store's first 4,096 rows from 16 clients
+    (``on_mesh``: with replica 0's dispatch worker killed and a coordinated
+    swap to ``rbs[1]`` at half load), waits until every replica is healthy,
+    appends [delta]'s 5,000 rows and refreshes while the clients send the
+    rows in passes; every other rank calls ``refresh_now``."""
+    from repro_torch.data.store import open_store
+    from repro_torch.distributed import FaultConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving.refresh import RefreshController
+    from repro_torch.serving.router import Router
+
+    dev, lead = mesh.device, mesh.rank == 0
+    path = paths["router_mesh" if on_mesh else "router_single"]
+    packed = np.load(paths["requests"])
+    st = {}
+    ops.reset_launch_counts()
+    with WarmCalls() as warms:
+        t = time.perf_counter()
+        router = None
+        if on_mesh or lead:
+            router = Router(rbs[0], replicas, mesh=mesh if on_mesh else None, device=dev, warmup="ladder",
+                            max_batch=64, top_k=10, fault=FaultConfig(max_retries=3, backoff_s=0.01),
+                            attempt_timeout_s=5.0)
+        ctl = RefreshController(path, router, cfg, mesh=mesh, device=dev, chunk_rows=STREAM_CHUNK_ROWS,
+                                min_confidence=0.4, mode="delta")
+        st["build_s"] = time.perf_counter() - t
+        try:
+            if lead:
+                def submit(i):
+                    return router.submit(packed[i])
+
+                def mid():
+                    router.fault_injection.kill_replica(0)
+                    t = time.perf_counter()
+                    st["swapped"] = router.hot_swap(rbs[1])
+                    st["swap_s"] = time.perf_counter() - t
+
+                loads = [_load(submit, mid if on_mesh else None)]
+                st["before"] = _router_healthy(router, 1 if on_mesh else 0)
+                t = time.perf_counter()
+                st["appended"] = int(APPEND_FRACTION * open_store(path).num_transactions)
+                append_rows(path, st["appended"], seed=1)
+                st["append_s"] = time.perf_counter() - t
+
+                def evict():
+                    for rep in router.replicas:
+                        rep.gateway.cache.evict_generation(rep.gateway.generation)
+
+                st["refreshed"], st["window"], passes = _passes_during_refresh(ctl, submit, evict)
+                st["refresh_s"] = st["window"][1] - st["window"][0]
+                st["loads"] = loads + passes
+                st["stats"] = _router_healthy(router, st["refreshed"])
+                st["kills_fired"] = router.fault_injection.kills_fired
+            else:
+                t = time.perf_counter()
+                st["refreshed"] = ctl.refresh_now()
+                st["refresh_s"] = time.perf_counter() - t
+            if router is not None:   # as refresh_now returned
+                st["generations"] = [rep.gateway.generation for rep in router.replicas]
+        finally:
+            if router is not None:
+                router.close()
+            ctl.close()
+    if router is not None:   # every batch served, the leader's last pass included
+        st["batches"] = sum(rep.gateway.mesh_timing["batches"] if on_mesh else rep.gateway.metrics.batches
+                            for rep in router.replicas)
+    counts = ops.launch_counts()
+    st.update(k1=counts["support_count_packed"], k2=counts["rule_match"], k3=counts["support_count"],
+              warms=warms.calls, history=ctl.history, threads=sorted(
+                  t.name for t in threading.enumerate() if t.name.startswith(("gateway-", "refresh-", "router-"))))
+    (mine_t0, mine_t1), (res, rb, compiled) = out_made[-2:]
+    st["digest"], st["marks"] = digest(res), (mine_t0, mine_t1, compiled)
+    return st, rb
+
+
+def mesh_router_rank(mesh, paths):
+    """One rank of the replicated tier on the (2, 2) mesh:
+    ``[mesh-router]`` (F13), ``Router(rb, 2, mesh=mesh)`` on every rank with
+    ``RefreshController(router, mesh=mesh)``, then ``[mesh-refresh-router]``
+    (F12), ``Router(rb, 3)`` of single-device gateways on rank 0 (the other
+    ranks pass None) with ``RefreshController(router, mesh=mesh)`` on every
+    rank (:func:`_router_stage`).  Then, as references, every rank's mesh
+    ``recommend`` of each of ``[mesh-router]``'s generations and rank 0's
+    single-device ``recommend`` of each of ``[mesh-refresh-router]``'s, and
+    K2 at this rank's blocks of a full bucket of the refreshed rulebook
+    (rank 0: the whole bucket and rulebook, on its one device) against its
+    plain versions."""
+    ready = _rank_setup(mesh)
+    from repro_torch.core.apriori import AprioriConfig
+    from repro_torch.serving import refresh as refresh_mod
+    from repro_torch.serving.recommend import recommend
+    from repro_torch.serving.rulebook import Rulebook, place_rulebook
+
+    dev = mesh.device
+    packed = np.load(paths["requests"])
+    rbs = [Rulebook.load(paths["rulebook"]), Rulebook.load(paths["rulebook_swap"])]
+    cfg = AprioriConfig(min_support=0.002, max_k=4, representation="packed", data_axes=("data",),
+                        model_axis="model")
+    made = []
+    compile_rulebook = refresh_mod.compile_rulebook
+
+    def captured(res, **kw):   # each refresh's result and rulebook, as references
+        rb = compile_rulebook(res, **kw)
+        made.append((res, rb, time.perf_counter()))
+        return rb
+
+    mine_delta = refresh_mod.inc.mine_delta
+
+    def timed_mine(*args, **kwargs):   # each refresh's mine, its span on this rank's clock
+        t = time.perf_counter()
+        res = mine_delta(*args, **kwargs)
+        made.append((t, time.perf_counter()))
+        return res
+
+    refresh_mod.compile_rulebook, refresh_mod.inc.mine_delta = captured, timed_mine
+    try:
+        router, rb_mesh = _router_stage(mesh, paths, rbs, cfg, made, ROUTER_MESH_REPLICAS, on_mesh=True)
+        single, rb_single = _router_stage(mesh, paths, rbs, cfg, made, ROUTER_SINGLE_REPLICAS, on_mesh=False)
+    finally:
+        refresh_mod.compile_rulebook, refresh_mod.inc.mine_delta = compile_rulebook, mine_delta
+    out = dict(rank=mesh.rank, ready=ready, router=router, single=single)
+    refs = [recommend(rb, packed, top_k=10, batch_size=1024, device=dev, mesh=mesh)
+            for rb in (rbs[0], rbs[1], rb_mesh)]
+    router["k2_block"] = _k2_at_blocks(mesh, rb_mesh, packed, dev)
+    if mesh.rank == 0:
+        router["refs"] = [(r.items, r.scores) for r in refs]
+        singles = [recommend(place_rulebook(rb, dev), packed, top_k=10, batch_size=1024, device=dev)
+                   for rb in (rbs[0], rb_single)]
+        single["refs"] = [(r.items, r.scores) for r in singles]
+        single["k2_block"] = _k2_at_blocks(None, rb_single, packed, dev)
+    return out
+
+
+def _check_loads(tag, loads, refs, singles=None):
+    """Zero drops in every load; every response bit for bit ``refs`` of its
+    generation (by basket), and, where ``singles`` is given, within rtol
+    1e-5, atol 1e-6 of those (items equal except at ties).  Returns the
+    generations of each load."""
+    seen = []
+    for n, load in enumerate(loads):
+        if not load["ok"].all() or load["errors"] or sum(load["failed"].values()):
+            raise AssertionError(f"[{tag}] load {n}: {int(load['ok'].sum())} answered of {REQUESTS}, "
+                                 f"{load['failed']}, {load['errors'][:1]}")
+        gens = sorted(set(load["gens"].tolist()))
+        for g in gens:
+            rows = load["gens"] == g
+            items, scores = refs[g]
+            if not (np.array_equal(load["items"][rows], items[rows])
+                    and np.array_equal(load["scores"][rows].view(np.uint32), scores[rows].view(np.uint32))):
+                raise AssertionError(f"[{tag}] load {n}: generation {g}'s responses differ from its recommend")
+            if singles is not None:
+                w_items, w_scores = (np.asarray(x)[rows] for x in singles[g])
+                np.testing.assert_allclose(load["scores"][rows], w_scores, rtol=RTOL, atol=ATOL)
+                tie = np.abs(np.diff(w_scores, axis=1)) <= ATOL + RTOL * np.abs(w_scores[:, 1:])
+                close = np.zeros_like(w_scores, dtype=bool)
+                close[:, 1:] |= tie
+                close[:, :-1] |= tie
+                if not np.array_equal(load["items"][rows][~close], w_items[~close]):
+                    raise AssertionError(f"[{tag}] load {n}: generation {g}'s items differ from its single-device "
+                                         "recommend")
+        seen.append(gens)
+    return seen
+
+
+def _window_line(st):
+    """The requests answered inside the leader's ``refresh_now`` (count,
+    qps, p50 / p99, from the passes sent during it), and in each of its
+    stages on the leader: the start (the key, the rows check), the mine,
+    the compile, then the outcomes' exchange, the swap and the hand-over."""
+    t0, t1 = st["window"]
+    passes = st["loads"][1:]
+    done = np.concatenate([p["done"] for p in passes])
+    lat = np.concatenate([p["latency"] for p in passes]) * 1e3
+
+    def inside(a, z):
+        got = lat[(done >= a) & (done <= z)]
+        return (f"{got.size} answered, {got.size / (z - a):.0f} qps"
+                + (f", p50 {np.percentile(got, 50):.3f} ms, p99 {np.percentile(got, 99):.3f} ms" if got.size else ""))
+
+    marks = [t0, *st["marks"], t1]
+    stages = "; ".join(f"{name} {z - a:.3f} s: {inside(a, z)}" for name, a, z in
+                       zip(("start", "mine", "compile", "exchange, swap and hand-over"), marks, marks[1:]))
+    return f"inside it {inside(t0, t1)}; by stage on the leader: {stages}"
+
+
+def mesh_router_phase(paths, want, want_by_gen, card):
+    """``[mesh-router]`` (F13) and ``[mesh-refresh-router]`` (F12) in one
+    spawn of the (2, 2) mesh (:func:`mesh_router_rank`).  Each stage: zero
+    drops; every response bit for bit its generation's ``recommend`` (the
+    mesh one for F13, the single-device one for F12; K2's ordered sum
+    makes both independent of the batch) and, for F13, within rtol 1e-5,
+    atol 1e-6 of the single-device one; after the refresh every replica
+    healthy on one generation on every rank, and the refresh dict-identical
+    to ``[delta]``'s ``mine_delta`` on every rank; K1 launched on every
+    rank, K2 on every rank that serves (every rank in F13, rank 0 in F12),
+    K2 exactly one launch a warm ladder's bucket plus one a batch; K2 at
+    each rank's blocks bit for bit ``rule_match_ordered``."""
+    outs, setup_s, total_s = _spawn_mesh(mesh_router_rank, MESH, paths)
+    lead = outs[0]
+    fr, fs = lead["router"], lead["single"]
+    # F13
+    gens = _check_loads("mesh-router", fr["loads"], fr["refs"],
+                        {0: want_by_gen[0], 1: want_by_gen[1], 2: fs["refs"][1]})
+    if gens[0] != [0, 1] or any(not set(g) <= {1, 2} for g in gens[1:]) or gens[-1] != [2] \
+            or fr["kills_fired"] != 1 or fr["swapped"] != 1:
+        raise AssertionError(f"[mesh-router] generations by load {gens}, kills {fr['kills_fired']}")
+    # F12
+    gens_single = _check_loads("mesh-refresh-router", fs["loads"], {0: fs["refs"][0], 1: fs["refs"][1]})
+    if gens_single[0] != [0] or any(not set(g) <= {0, 1} for g in gens_single[1:]) or gens_single[-1] != [1]:
+        raise AssertionError(f"[mesh-refresh-router] generations by load {gens_single}")
+    for o in outs:
+        for tag, st, gen, ladder, serves in (("mesh-router", o["router"], 2, MESH_LADDER, True),
+                                             ("mesh-refresh-router", o["single"], 1, LADDER, o["rank"] == 0)):
+            history = [(h["generation"], h["mode"]) for h in st["history"]]
+            if st["refreshed"] != gen or history != [(gen, "delta")] or st["digest"] != want["delta"] \
+                    or st["k1"] == 0 or st["k3"] or st["threads"]:
+                raise AssertionError(f"[{tag}] rank {o['rank']}: generation {st['refreshed']}, history {history}, "
+                                     f"result equal to [delta]'s {st['digest'] == want['delta']}, K1 {st['k1']}, "
+                                     f"K3 {st['k3']}, threads left {st['threads']}")
+            k2_want = st["warms"] * len(ladder) + st.get("batches", 0)
+            if (st["k2"] == 0) == serves or st["k2"] != k2_want \
+                    or (serves and st["generations"] != [gen] * len(st["generations"])):
+                raise AssertionError(f"[{tag}] rank {o['rank']}: K2 {st['k2']} for {st['warms']} warm ladders and "
+                                     f"{st.get('batches')} batches; replica generations {st.get('generations')}")
+            blk = st.get("k2_block")
+            if blk is not None and (not blk["ordered"] or blk["max_abs_err"] > ATOL + RTOL * 100):
+                raise AssertionError(f"[{tag}] rank {o['rank']}: K2 at its blocks differs from its plain versions")
+    for tag, st in (("mesh-router", fr), ("mesh-refresh-router", fs)):
+        states = [(r["state"], r["generation"]) for r in st["stats"]["replicas"]]
+        if len(set(states)) != 1 or states[0] != ("healthy", st["refreshed"]):
+            raise AssertionError(f"[{tag}] replicas after the refresh: {states}")
+    log(f"[mesh-router] (2, 2) over gloo on the one card, both stages in one spawn: setup {setup_s:.3f} s, whole "
+        f"spawn {total_s:.3f} s [{card}]")
+    for tag, key, what in (("mesh-router", "router", f"Router(rb, {ROUTER_MESH_REPLICAS}, mesh=mesh)"),
+                           ("mesh-refresh-router", "single", f"Router(rb, {ROUTER_SINGLE_REPLICAS}) on rank 0")):
+        st = lead[key]
+        walls = [load["wall"] for load in st["loads"]]
+        lat, before = st["stats"]["latency"], st["before"]
+        window = _window_line(st)
+        followers = " / ".join(f"{o[key]['refresh_s']:.3f}" for o in outs[1:])
+        swap = (f"; replica 0's worker killed ({st['kills_fired']} kill) and a coordinated swap to generation "
+                f"{st['swapped']} in {st['swap_s']:.3f} s at half load" if "swapped" in st else "")
+        per_batch = REQUESTS * len(walls) / st["batches"]
+        log(f"[{tag}] {what}, built with its controller in {st['build_s']:.3f} s; the first load {walls[0]:.3f} s = "
+            f"{REQUESTS / walls[0]:.0f} qps{swap}; {st['batches']} batches on rank 0 over its replicas, "
+            f"{per_batch:.2f} requests a batch; failovers {before['failovers']}, worker restarts "
+            f"{before['supervisor']['restarts']}; then {len(walls) - 1} passes during and after the refresh of "
+            f"{' / '.join(f'{w:.3f}' for w in walls[1:])} s = {' / '.join(f'{REQUESTS / w:.0f}' for w in walls[1:])} "
+            f"qps; router p50 {lat['p50_ms']:.3f} ms, p99 {lat['p99_ms']:.3f} ms [{card}]")
+        log(f"[{tag}] appended {st['appended']} rows in {st['append_s']:.3f} s; the leader's refresh_now "
+            f"{st['refresh_s']:.3f} s to generation {st['refreshed']}, {window}; the followers' refresh_now "
+            f"{followers} s from their call [{card}]")
+    for o in outs:
+        r, s1 = o["router"], o["single"]
+        blk = r["k2_block"]
+        log(f"[mesh-router] rank {o['rank']}: K1 {r['k1']} / {s1['k1']}, K2 {r['k2']} / {s1['k2']} launches in "
+            f"[mesh-router] / [mesh-refresh-router] ({r['warms']} / {s1['warms']} warm ladders, {r['batches']} / "
+            f"{s1.get('batches', 0)} batches); K2 at its blocks of a full bucket of the refreshed rulebook "
+            f"({blk['baskets']} baskets x {blk['rules']} rules) {blk['ms']:.4f} ms, plain {blk['plain_ms']:.3f} ms, "
+            f"bit for bit rule_match_ordered [{card}]")
+    blk = fs["k2_block"]
+    log(f"[mesh-refresh-router] rank 0: K2 at a full bucket of the refreshed rulebook on its one device "
+        f"({blk['baskets']} baskets x {blk['rules']} rules) {blk['ms']:.4f} ms, plain {blk['plain_ms']:.3f} ms, bit "
+        f"for bit rule_match_ordered [{card}]")
+    log(f"[mesh-router] zero drops in both stages; every response bit for bit its generation's recommend (mesh / "
+        f"single device); every replica healthy on generation {fr['refreshed']} / {fs['refreshed']} after the "
+        f"refresh; every rank's refresh dict-identical to [delta]'s mine_delta")
+    return outs
+
 
 
 def mesh_cli_phase(card):
@@ -2866,13 +3216,17 @@ def main() -> int:
         rec_outs = mesh_recommend_phase(paths, rec, card)
         paths.update(requests=os.path.join(root, "requests.npy"), refresh=os.path.join(root, "refresh-mesh"),
                      rulebook_swap=os.path.join(root, "rulebook-swap.npz"), faults=os.path.join(root, "faults-mesh"),
-                     faults_dir=os.path.join(root, "faults"))
-        shutil.copytree(paths["refresh"], paths["faults"])   # [mesh-faults] appends [delta]'s rows to it
+                     faults_dir=os.path.join(root, "faults"), router_mesh=os.path.join(root, "router-mesh"),
+                     router_single=os.path.join(root, "router-single"))
+        for copy in ("faults", "router_mesh", "router_single"):   # each appends [delta]'s rows to its own
+            shutil.copytree(paths["refresh"], paths[copy])
         np.save(paths["requests"], packed)
         rb2.to_host().save(paths["rulebook_swap"])
         gw_outs = mesh_gateway_phase(paths, want, {0: (rec.items, rec.scores), 1: (want2.items, want2.scores)}, card,
                                      [o["delta"]["wall"] for o in mesh_outs])
         mesh_faults_phase(paths, want, card)
+        router_outs = mesh_router_phase(paths, want, {0: (rec.items, rec.scores), 1: (want2.items, want2.scores)},
+                                        card)
         mesh_cli_phase(card)
         mesh_nccl_phase(streaming, ops, paths, want, mesh_passes, dev, card)
 
@@ -2898,6 +3252,8 @@ def main() -> int:
              mesh_ms_per_rank=[o["k1"]["ms"] for o in mesh_outs],
              mesh_shape_per_rank=[mesh_outs[0]["k1"]["rows"], mesh_outs[0]["k1"]["cands"]],
              mesh_refresh_launches_per_rank=[o["k1"] for o in gw_outs],
+             mesh_router_launches_per_rank=[o["router"]["k1"] for o in router_outs],
+             mesh_refresh_router_launches_per_rank=[o["single"]["k1"] for o in router_outs],
              examples_launches={n: e["launches"]["support_count_packed"] for n, e in examples.items()}),
         dict(name="rule_match", route="cuda", source="src/repro_torch/kernels/csrc/rule_match.cu",
              replaces="src/repro/kernels/rule_match.py:86", launches=k2_launches,
@@ -2916,6 +3272,10 @@ def main() -> int:
              mesh_gateway_launches_during_the_refresh_mine_per_rank=[o["mine"]["k2"] for o in gw_outs],
              mesh_gateway_ms_per_rank=[o["k2_block"]["ms"] for o in gw_outs],
              mesh_gateway_shape_per_rank=[gw_outs[0]["k2_block"]["baskets"], gw_outs[0]["k2_block"]["rules"]],
+             mesh_router_launches_per_rank=[o["router"]["k2"] for o in router_outs],
+             mesh_router_ms_per_rank=[o["router"]["k2_block"]["ms"] for o in router_outs],
+             mesh_refresh_router_launches_per_rank=[o["single"]["k2"] for o in router_outs],
+             mesh_refresh_router_ms=router_outs[0]["single"]["k2_block"]["ms"],
              examples_launches={n: e["launches"]["rule_match"] for n, e in examples.items()}),
         dict(name="support_count", route="cuda", source="src/repro_torch/kernels/csrc/support_count.cu",
              replaces="src/repro/kernels/support_count.py:69", launches=k3_launches,

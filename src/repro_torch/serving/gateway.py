@@ -58,7 +58,10 @@ answering batches meanwhile.  Once every rank has mined and the ranks have
 exchanged their outcomes (in the default group's store), the leader takes
 the stream, names the generation, and each rank places its block of its
 own rulebook; the commit follows at once, under the same lock, and a
-follower's ``refresh_now`` returns once it has applied it.  While the
+follower's ``refresh_now`` returns once it has applied it.  A mesh
+``Router``'s replicas are refreshed by a controller that drives its own
+cycles: no MINE command comes, and a follower places the rulebook its
+controller mined when the PLACE command comes.  While the
 leader is idle it sends a heartbeat every quarter of the mesh's timeout, so
 a follower waiting for a command never times out.  ``close()`` on the
 leader resolves every admitted request, then stops the followers; on a
@@ -704,11 +707,20 @@ class Gateway:
             raise RuntimeError(f"generation {self.generation} keeps serving: the refresh's mine failed on "
                                f"{len(errors)} rank(s):\n" + "\n".join(errors))
         with self._swap_lock, self._commands.lock:   # the commit follows the place at once
-            self._open_stream()
             gen_id = self._generation.generation + 1
-            self._commands.send(PLACE, gen_id)
-            self.commit_swap(self._prepared(*self._prepare_everywhere(gen_id, lambda: made["rulebook"])))
+            self.commit_swap(self._place_mined(made["rulebook"], gen_id))
         return gen_id, made, rows
+
+    def _place_mined(self, rulebook: Rulebook, generation: int) -> _Generation:
+        """Leader, a mesh refresh's place: every rank places and warms its
+        block of the rulebook it mined itself (the PLACE command), and the
+        ranks exchange outcomes.  Returns the generation record for
+        :meth:`commit_swap`, or raises with the ranks' errors (the serving
+        generation stays)."""
+        with self._commands.lock:
+            self._open_stream()
+            self._commands.send(PLACE, generation)
+            return self._prepared(*self._prepare_everywhere(generation, lambda: rulebook))
 
     def _open_stream(self) -> None:
         """Leader, under the command lock: raise once ``close()`` has
@@ -723,6 +735,15 @@ class Gateway:
             with self._attached:
                 self._refresher = controller
                 self._attached.notify_all()
+
+    def _await_generation(self, generation: int) -> None:
+        """Follower: return once the leader's commit of ``generation`` (or
+        of a later one) is applied on this rank."""
+        while self._generation.generation < generation:
+            if not self._follower.is_alive():
+                raise RuntimeError(f"the gateway's follow loop ended before generation {generation} served "
+                                   f"here") from self._follow_error
+            time.sleep(0.002)
 
     def _follow(self) -> None:
         """Follower: consume the leader's commands, in order, until STOP."""
@@ -757,11 +778,17 @@ class Gateway:
                         self._mine.thread.join()  # leader passed before this command
                     self._mine = _Mine(self, rows)
                 elif op == PLACE:
+                    # what this rank mined: in this gateway's refresh mine, or in the
+                    # controller, where it drives the cycles itself (a router's replica)
                     mine = self._mine
-                    if mine is None or "rulebook" not in mine.made:
+                    made = mine.made if mine is not None else getattr(self._refresher, "mined", {})
+                    if "rulebook" not in made:
                         raise RuntimeError("the leader places a refresh this rank has not mined")
-                    gen, errors = self._prepare_everywhere(generation, lambda: mine.made["rulebook"])
-                    if errors:   # the leader commits nothing: the cycle ends here
+                    gen, errors = self._prepare_everywhere(generation, lambda: made["rulebook"])
+                    if mine is None:   # the controller learns the cycle's end from the leader
+                        if not errors:
+                            self._held[generation] = gen
+                    elif errors:   # the leader commits nothing: the cycle ends here
                         self._refresher._followed(generation, errors, mine.made, mine.rows,
                                                   time.perf_counter() - mine.t0)
                     else:        # it ends at the commit that follows

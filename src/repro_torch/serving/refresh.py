@@ -47,11 +47,30 @@ before the cycle ends, so the next cycle mines on groups no collective is
 left in.  ``refresh_now()`` is a collective call: on the leader it drives a
 cycle, on a follower it waits for the cycle the leader drives next and
 returns its generation once that generation serves there.
+
+A target that is not a mesh gateway is refreshed on the mesh too, as the
+JAX package mines on its mesh whatever the target: a
+:class:`~repro_torch.serving.router.Router` whose replicas serve on the
+mesh (every rank passes its rank of it), or a target on one device (a
+``Gateway`` or ``Router`` on rank 0, which the other ranks pass as None).
+No gateway's command stream carries these cycles, so the controller drives
+them: the leader starts each cycle on every rank with a key in the store
+(the rows it covers), every rank mines on the mine mesh (a follower in a
+thread of its own, started with the controller) and the ranks exchange
+outcomes as above; then the leader swaps the target: ``hot_swap`` on one
+device, or the router's coordinated swap in which each replica's ranks
+place their blocks of the rulebook each rank mined (the PLACE command, not
+a broadcast of the leader's columns), every replica committed to one
+generation.  The leader hands the outcome (the generation and the replicas
+committed, or the error) to the followers through the store, and a
+follower's ``refresh_now`` returns it once those replicas serve it there.
+``close()`` on the leader ends the followers' loops.
 """
 
 from __future__ import annotations
 
 import datetime
+import json
 import threading
 import time
 import traceback
@@ -63,6 +82,7 @@ from repro_torch.core import incremental as inc
 from repro_torch.core import streaming as st
 from repro_torch.data.store import open_store
 from repro_torch.launch.mesh import MeshAborted, mesh_device
+from repro_torch.serving.gateway import Gateway
 from repro_torch.serving.metrics import _RegistryMetrics
 from repro_torch.serving.rulebook import compile_rulebook
 
@@ -111,9 +131,11 @@ class RefreshController:
     ``mode="full"`` always re-mines with the level-wise streamed driver.
     Both mine on ``device`` from the controller's own thread, beside the
     target's dispatch workers; the swap places the new rulebook there too
-    (:meth:`Gateway.prepare_swap`).  With ``mesh`` the target is this
-    rank's mesh ``Gateway``, and the mine runs on every rank on the
-    controller's own mesh, beside serving (the module docstring).
+    (:meth:`Gateway.prepare_swap`).  With ``mesh`` every rank builds the
+    controller alike, and the mine runs on every rank on the controller's
+    own mesh, beside serving (the module docstring).  The target is then
+    this rank's mesh ``Gateway`` or mesh ``Router``, or a target on one
+    device, which rank 0 passes and the other ranks pass as None.
     ``min_append_rows`` is the watermark hysteresis: a refresh fires once at
     least that many rows sit above the last swapped watermark.
     """
@@ -149,8 +171,20 @@ class RefreshController:
         self.mesh = mesh
         self.device = mesh_device(device, mesh)
         self._on_mesh = mesh is not None and mesh.size > 1
-        if self._on_mesh and getattr(target, "_mesh", None) is not mesh:
-            raise ValueError("a RefreshController on a mesh refreshes a Gateway built on the same mesh")
+        self.leader = not self._on_mesh or mesh.rank == 0
+        placed = getattr(target, "_mesh", None)   # a mesh Gateway's or mesh Router's
+        if self._on_mesh:
+            if placed is not None and placed is not mesh:
+                raise ValueError("a RefreshController on a mesh refreshes a Gateway or Router built on the "
+                                 "same mesh, or one on rank 0's device")
+            if placed is None and (target is None) == self.leader:
+                raise ValueError("a RefreshController on a mesh refreshing a target on one device: rank 0 "
+                                 "passes the target, every other rank passes None")
+        # on a mesh, a mesh Gateway's command stream carries the cycles; for
+        # any other target the controller drives them itself
+        self._via_gateway = self._on_mesh and placed is mesh and isinstance(target, Gateway)
+        self._driven = self._on_mesh and not self._via_gateway
+        self._mesh_router = self._driven and placed is not None
         self.chunk_rows = chunk_rows
         self.prefetch = prefetch
         self.min_confidence = min_confidence
@@ -195,18 +229,32 @@ class RefreshController:
         self.mine_mesh = mesh.twin() if self._on_mesh else mesh
         self._stream = None
         self._cycles = 0   # the mine cycles run, alike on every rank
+        self._closed = False
+        # a follower whose cycles the controller drives: what the cycle in
+        # flight mined (a mesh router's replicas place its rulebook), and
+        # the thread that runs the cycles
+        self.mined: dict = {}
+        self._loop: threading.Thread | None = None
+        self._loop_error: BaseException | None = None
         if self._on_mesh:
+            # this controller's keys in the default group's store (the first
+            # mine mesh's prefix: a rebuilt mine mesh keeps them)
+            self._store = self.mine_mesh.store
             if self.device.type == "cuda":
                 self._stream = torch.cuda.Stream(self.device)
-            target._attach(self)
+            if placed is not None:
+                target._attach(self)
+            if self._driven and not self.leader:
+                self._loop = threading.Thread(target=self._follow_cycles, name="refresh-follower", daemon=True)
+                self._loop.start()
 
     # ------------------------------------------------------------ lifecycle --
     def start(self) -> "RefreshController":
-        """Start the poller (on a mesh, the leader's; a follower's cycles
-        come in the gateway's command stream)."""
+        """Start the poller (on a mesh, the leader's; a follower runs the
+        cycles the leader starts)."""
         if self._thread is not None:
             raise RuntimeError("RefreshController already started")
-        if self._on_mesh and self.mesh.rank != 0:
+        if not self.leader:
             return self
         self._stop.clear()
         self._thread = threading.Thread(
@@ -216,11 +264,34 @@ class RefreshController:
         return self
 
     def stop(self) -> None:
+        """Stop the poller.  Where the controller drives a mesh's cycles
+        itself, this ends them too (:meth:`close`)."""
+        if self._driven:
+            self._closed = True
         self._stop.set()
         self._wake.set()
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if not self._driven:
+            return
+        if self.leader:
+            with self._lock:   # after a cycle in flight: the next cycle's start is the stop
+                self._store.set(f"refresh/{self._cycles + 1}/start", "stop")
+            return
+        self._loop.join()
+        if self._loop_error is not None:
+            raise self._loop_error
+
+    def close(self) -> None:
+        """Stop the poller and refresh no more.  Where the controller drives
+        a mesh's cycles itself, the leader's close waits for a cycle in
+        flight to mine, which then commits nothing (its ``refresh_now``
+        raises on every rank), and ends every follower's loop; a
+        follower's close waits for that end and raises what ended its
+        loop."""
+        self._closed = True
+        self.stop()
 
     def __enter__(self) -> "RefreshController":
         return self.start()
@@ -270,13 +341,16 @@ class RefreshController:
         generation. Raises (and counts a failure) if mining/swap fail —
         the previous generation keeps serving either way.  On a mesh it is
         a collective call (the module docstring)."""
-        if self._on_mesh and self.mesh.rank != 0:
+        if not self.leader:
             return self._next_followed()
         with self._lock:
             t0 = time.perf_counter()
             try:
+                if self._closed:
+                    raise RuntimeError(f"the refresh controller is closed; generation "
+                                       f"{self.target.generation} keeps serving")
                 if self._on_mesh:
-                    generation, made, rows = self.target._refresh(self)
+                    generation, made, rows = (self._drive() if self._driven else self.target._refresh(self))
                     rulebook, report = made["rulebook"], made["report"]
                 else:
                     store = open_store(self.store_path)
@@ -287,6 +361,79 @@ class RefreshController:
                 self.metrics.record_failure()
                 raise
             return self._record(generation, rulebook, report, rows, time.perf_counter() - t0)
+
+    def _drive(self) -> tuple:
+        """Leader, a cycle the controller drives: start it on every rank (a
+        key in the store naming the rows it covers), mine on every rank
+        (:meth:`_mine_cycle`), swap the target, and hand the outcome to the
+        followers (a key in the store, set whatever happened after the
+        mine).  Returns ``(generation, what the cycle made, the rows it
+        covers)``."""
+        n, rows = self._cycles + 1, open_store(self.store_path).num_transactions
+        if n > 2:   # every follower read cycle n - 2's keys before it reported cycle n - 1
+            for key in ("start", "outcome"):
+                self._store.delete_key(f"refresh/{n - 2}/{key}")
+        self._store.set(f"refresh/{n}/start", str(rows))
+        made = {}
+        errors = self._mine_cycle(rows, made)
+        if errors:
+            raise RuntimeError(f"generation {self.target.generation} keeps serving: the refresh's mine failed on "
+                               f"{len(errors)} rank(s):\n" + "\n".join(errors))
+        outcome = dict(error=f"rank 0: the swap of refresh cycle {n} did not end")
+        try:
+            if self._closed:
+                raise RuntimeError(f"the refresh controller was closed during the cycle; generation "
+                                   f"{self.target.generation} keeps serving")
+            if self._mesh_router:   # each rank places the rulebook it mined
+                generation, replicas = self.target._swap_mined(made["rulebook"])
+            else:
+                generation, replicas = self.target.hot_swap(made["rulebook"]), []
+            outcome = dict(generation=generation, replicas=replicas)
+        except Exception:
+            outcome = dict(error=f"rank 0: {traceback.format_exc()}")
+            raise
+        finally:
+            self._store.set(f"refresh/{n}/outcome", json.dumps(outcome))
+        return generation, made, rows
+
+    def _await_key(self, key: str) -> str:
+        """Follower: the value of ``key`` in this controller's store, once
+        the leader has set it (no time limit: the leader refreshes when it
+        will)."""
+        while not self._store.check([key]):   # a lost store raises here
+            try:
+                self._store.wait([key], datetime.timedelta(seconds=1))
+            except RuntimeError:   # the wait timed out
+                pass
+        return self._store.get(key).decode()
+
+    def _follow_cycles(self) -> None:
+        """Follower, cycles the controller drives: each one the leader
+        starts, until its close.  A cycle whose mine succeeded on every rank
+        ends with the leader's outcome: its error, or its generation once
+        every replica it committed serves it on this rank."""
+        try:
+            if self.device.type == "cuda":   # the current card is a thread's own
+                torch.cuda.set_device(self.device)
+            while True:
+                n = self._cycles + 1
+                start = self._await_key(f"refresh/{n}/start")
+                if start == "stop":
+                    return
+                t0, rows = time.perf_counter(), int(start)
+                self.mined = made = {}
+                errors, generation, what = self._mine_cycle(rows, made), None, "the refresh's mine"
+                if not errors:
+                    outcome = json.loads(self._await_key(f"refresh/{n}/outcome"))
+                    if "error" in outcome:
+                        errors, what = [outcome["error"]], "the refresh's swap"
+                    else:
+                        generation = outcome["generation"]
+                        for rid in outcome["replicas"]:
+                            self.target.replicas[rid].gateway._await_generation(generation)
+                self._followed(generation, errors, made, rows, time.perf_counter() - t0, what)
+        except BaseException as e:  # noqa: BLE001 — close() re-raises it
+            self._loop_error = e
 
     def _mine_cycle(self, rows: int, made: dict) -> list:
         """Every rank of a mesh, beside serving: check that each sees the
@@ -332,7 +479,7 @@ class RefreshController:
         store under the cycle's number (the mine mesh's groups may be
         broken by now): this rank's is set, the others' awaited for at most
         the groups' timeout.  Returns the errors."""
-        store, n, rank = self.mesh.store, self._cycles, self.mesh.rank
+        store, n, rank = self._store, self._cycles, self.mesh.rank
         store.set(f"refresh/{n}/{rank}", error or "")
         if n > 2:   # every rank read cycle n - 2's outcomes before this cycle began
             store.delete_key(f"refresh/{n - 2}/{rank}")
@@ -397,11 +544,13 @@ class RefreshController:
             self.on_refresh(record)
         return generation
 
-    def _followed(self, generation: int | None, errors: list, made: dict, rows: int, seconds: float) -> None:
-        """Follower: the gateway ran a cycle the leader drove (``generation``
-        None: it failed in the mine, before the leader named one)."""
+    def _followed(self, generation: int | None, errors: list, made: dict, rows: int, seconds: float,
+                  what: str | None = None) -> None:
+        """Follower: a cycle the leader drove has run here (``generation``
+        None: it failed before the leader named one, by default in the
+        mine)."""
         if errors:
-            what = "the refresh's mine" if generation is None else f"the refresh to generation {generation}"
+            what = what or ("the refresh's mine" if generation is None else f"the refresh to generation {generation}")
             outcome = RuntimeError(f"{what} failed:\n" + "\n".join(errors))
             self.last_error = outcome
             self.metrics.record_failure()
@@ -417,7 +566,10 @@ class RefreshController:
             self._handed += 1
             want = self._handed
             while len(self._outcomes) < want:
-                if not self.target._follower.is_alive():
+                if self._driven and not self._loop.is_alive():
+                    raise RuntimeError("the refresh controller's follow loop ended before the refresh") from \
+                        self._loop_error
+                if self._via_gateway and not self.target._follower.is_alive():
                     raise RuntimeError("the gateway's follow loop ended before the refresh") from \
                         self.target._follow_error
                 self._cycled.wait(0.1)

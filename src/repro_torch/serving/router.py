@@ -41,6 +41,21 @@ JobTracker over N TaskTrackers:
 Fault injection for tests/benchmarks rides the batcher's in-worker crash
 hook: :class:`RouterFaultInjection` can kill a replica's worker mid-batch,
 delay its dispatches, or fail its swap prepares.
+
+**On a mesh** (``mesh=``, ``launch.mesh``: one process a rank) every rank
+builds the router alike, and each replica is a mesh
+:class:`~repro_torch.serving.gateway.Gateway` on process groups of its own:
+the first on ``mesh``, each other on a twin of it (``Mesh.twin()``), so no
+two replicas' command streams ever share a group.  Building a twin is a
+collective call, so every rank builds them all, in one order, before the
+first replica starts its follow thread.  Rank 0 leads: its router is the
+one above (the ring, failover, supervised restarts, the coordinated swap,
+each replica's prepare and commit going through that replica's own command
+stream).  On every other rank the router holds its replicas' follower
+gateways and nothing else; ``submit``, ``stats`` and swaps raise there, and
+``close()`` waits for the leader's to stop each replica's followers.  A
+killed dispatch worker dies before its batch's command is sent, so no
+follower is left in a collective.
 """
 
 from __future__ import annotations
@@ -260,6 +275,7 @@ class Router:
         rulebook: Rulebook,
         num_replicas: int = 2,
         *,
+        mesh=None,
         device="cuda",
         fault: FaultConfig = FaultConfig(),
         attempt_timeout_s: float = 1.0,
@@ -273,22 +289,19 @@ class Router:
         tracer=None,
         **gateway_kwargs,
     ):
+        """``mesh``: every replica serves on this mesh (the module
+        docstring); ``gateway_kwargs`` (``data_axes``, ``rule_axis``,
+        ``max_batch``, ...) reach every replica's :class:`Gateway`."""
         if num_replicas < 1:
             raise ValueError("num_replicas must be >= 1")
-        self.fault = fault
         self._tracer = tracer
-        self._attempt_timeout = float(attempt_timeout_s)
-        self._suspect_after = int(suspect_after)
-        self._healthy_after = float(healthy_after_s)
-        self._monitor_interval = float(monitor_interval_s)
-        self.metrics = RouterMetrics()
-        self.fault_injection = RouterFaultInjection()
-        self._ring = HashRing(num_replicas, vnodes)
         self._closed = False
-        # alert-driven brownout (§14): 0 = normal, 1 = warn (shed above 50%
-        # aggregate queue fill), 2 = page (shed above 25%) — a burning
-        # availability SLO tightens admission instead of letting queues fill
-        self._brownout_level = 0
+        on_mesh = mesh is not None and mesh.size > 1
+        self._mesh = mesh if on_mesh else None
+        self.leader = not on_mesh or mesh.rank == 0
+        # every twin before the first replica, whose followers start
+        # consuming commands on their groups at once
+        meshes = [mesh] + [mesh.twin() if on_mesh else mesh for _ in range(num_replicas - 1)]
 
         # N fully independent gateways: own batcher, own cache, own device
         # placement — N placed rulebooks on the one card. The kernel
@@ -297,10 +310,24 @@ class Router:
         # themselves (trace_root=False): one request = one trace, sampled
         # once at the router, continued through whichever replicas serve it
         self._replicas = [
-            Replica(rid, Gateway(rulebook, device=device, tracer=tracer,
+            Replica(rid, Gateway(rulebook, mesh=m, device=device, tracer=tracer,
                                  trace_root=False, **gateway_kwargs))
-            for rid in range(num_replicas)
+            for rid, m in enumerate(meshes)
         ]
+        if not self.leader:
+            return
+        self.fault = fault
+        self._attempt_timeout = float(attempt_timeout_s)
+        self._suspect_after = int(suspect_after)
+        self._healthy_after = float(healthy_after_s)
+        self._monitor_interval = float(monitor_interval_s)
+        self.metrics = RouterMetrics()
+        self.fault_injection = RouterFaultInjection()
+        self._ring = HashRing(num_replicas, vnodes)
+        # alert-driven brownout (§14): 0 = normal, 1 = warn (shed above 50%
+        # aggregate queue fill), 2 = page (shed above 25%) — a burning
+        # availability SLO tightens admission instead of letting queues fill
+        self._brownout_level = 0
         for rep in self._replicas:
             rep.gateway._batcher._crash_hook = functools.partial(
                 self.fault_injection._on_dispatch, rep.rid
@@ -338,6 +365,11 @@ class Router:
                 on_gave_up=self._on_replica_gave_up,
             )
 
+    def _leader_only(self, what: str) -> None:
+        if not self.leader:
+            raise RuntimeError(f"{what}: rank {self._mesh.rank} holds the mesh router's follower replicas; "
+                               "rank 0 alone admits requests and swaps")
+
     # ----------------------------------------------------------- requests --
     def submit(self, basket, top_k: int | None = None, deadline_ms: float | None = None):
         """Admit one basket query; returns a Future resolving to a gateway
@@ -347,6 +379,7 @@ class Router:
         Raises :class:`AdmissionRejected` when the router is closed or no
         candidate replica can take the request (all dead / all saturated) —
         the load-shedding path."""
+        self._leader_only("submit")
         if self._closed:
             self.metrics.record_shed()
             raise AdmissionRejected("router closed")
@@ -404,6 +437,21 @@ class Router:
         answering its stale generation (``max_generation_lag`` tracks the
         gap), and is re-synced by the monitor once it can take the swap.
         Raises if NO replica completed prepare (nothing was committed)."""
+        self._leader_only("hot_swap")
+        return self._swap(rulebook, lambda gw, target: gw.prepare_swap(rulebook, generation=target))[0]
+
+    def _swap_mined(self, rulebook: Rulebook) -> tuple:
+        """Leader, a mesh ``RefreshController``'s cycle: :meth:`hot_swap`,
+        in which each mesh replica's ranks place their blocks of the
+        rulebook each rank mined itself (``Gateway._place_mined``) instead
+        of the leader's host columns.  Returns ``(generation, the ids of
+        the replicas committed)``."""
+        return self._swap(rulebook, lambda gw, target: gw._place_mined(rulebook, target))
+
+    def _swap(self, rulebook: Rulebook, prepare) -> tuple:
+        """The coordinated swap, ``prepare(gateway, generation)`` being its
+        phase 1 on one replica.  Returns ``(generation, the ids of the
+        replicas committed)``."""
         with self._swap_lock:
             target = self._target_generation + 1
             swap_sp = None
@@ -422,7 +470,7 @@ class Router:
                         raise InjectedFailure(
                             f"injected swap-prepare failure on replica {rep.rid}"
                         )
-                    prepared[rep.rid] = gw.prepare_swap(rulebook, generation=target)
+                    prepared[rep.rid] = prepare(gw, target)
                     if prep_sp is not None:
                         prep_sp.end(outcome="ok")
                 except Exception:
@@ -456,7 +504,7 @@ class Router:
             if swap_sp is not None:
                 swap_sp.end(outcome="ok", prepared=len(prepared))
         self._observe_lag()
-        return target
+        return target, sorted(prepared)
 
     # ------------------------------------------------------- alert reactions --
     def handle_alert(self, event) -> None:
@@ -473,6 +521,7 @@ class Router:
 
         Exceptions must not escape into the evaluator's emit path, so the
         whole body is defensive — an unknown signal is ignored."""
+        self._leader_only("handle_alert")
         signal = getattr(event, "signal", "")
         severity = getattr(event, "severity", "ok")
         if signal == "availability":
@@ -496,11 +545,21 @@ class Router:
     @property
     def generation(self) -> int:
         """The coordinated target generation (replicas may lag — see
-        ``stats()['replicas']`` / ``max_generation_lag``)."""
+        ``stats()['replicas']`` / ``max_generation_lag``); on a mesh
+        follower, the lowest generation its replicas serve."""
+        if not self.leader:
+            return min(rep.gateway.generation for rep in self._replicas)
         return self._target_generation
+
+    def _attach(self, controller) -> None:
+        """A mesh ``RefreshController`` of this router: each follower
+        replica places the rulebook its rank mined when the leader says so."""
+        for rep in self._replicas:
+            rep.gateway._attach(controller)
 
     # -------------------------------------------------------------- stats --
     def stats(self) -> dict:
+        self._leader_only("stats")
         out = self.metrics.snapshot()
         # the replica-side latency view: the N gateway histograms MERGED
         # (bucket-wise addition ≡ recording the union of their samples, §13)
@@ -529,10 +588,22 @@ class Router:
     # ---------------------------------------------------------- lifecycle --
     def close(self) -> None:
         """Stop admitting; flush every replica; fail anything still pending
-        (retry-parked or in flight) with a typed exception — never a hang."""
+        (retry-parked or in flight) with a typed exception — never a hang.
+        On a mesh the leader's close stops each replica's followers; a
+        follower's waits for that and raises what ended a follow loop."""
         if self._closed:
             return
         self._closed = True
+        if not self.leader:
+            errors = []
+            for rep in self._replicas:
+                try:
+                    rep.gateway.close()
+                except BaseException as e:  # noqa: BLE001 — raised once every replica is closed
+                    errors.append(e)
+            if errors:
+                raise errors[0]
+            return
         if self.supervisor is not None:
             self.supervisor.close()
         self._stop_monitor.set()

@@ -373,7 +373,8 @@ class GroupLog:
     default group), and every overlap: a collective entered on a group
     while another thread's collective is still in it (one sent with
     ``async_op=True`` is in its group until it completes: the log waits for
-    it), and every mine mesh a failed cycle built (``Mesh.twin``)."""
+    it), every mine mesh a failed cycle built (``Mesh.twin``), and the
+    thread that sent each collective."""
 
     NAMES = ("all_reduce", "all_gather", "broadcast", "all_gather_object", "broadcast_object_list", "barrier")
 
@@ -403,7 +404,7 @@ class GroupLog:
                     if busy.get(key) is not None:
                         self.overlaps.append((name, me, busy[key]))
                     busy[key] = me
-                    self.calls.append((getattr(local, "mine", False), key))
+                    self.calls.append((getattr(local, "mine", False), key, threading.get_ident()))
                 try:
                     work = fn(*args, **kwargs)
                     if kwargs.get("async_op") and work is not None:
@@ -438,13 +439,36 @@ class GroupLog:
         """The calls on each mesh's groups (the mine's: ``mine_mesh``, the
         one the log began with, and every mine mesh built within the log),
         and those on a wrong one."""
-        def ids(*meshes):
-            return {id(g) for m in meshes for g in [*m._groups.values(), m._host_group]}
-
-        serving, mine = ids(serving_mesh), ids(mine_mesh, *self.twins)
-        wrong = [(m, key) for m, key in self.calls if key not in (mine if m else serving)]
-        return dict(mine=sum(m for m, _ in self.calls), serving=sum(not m for m, _ in self.calls), wrong=wrong,
+        serving, mine = _group_ids(serving_mesh), _group_ids(mine_mesh, *self.twins)
+        wrong = [(m, key) for m, key, _ in self.calls if key not in (mine if m else serving)]
+        return dict(mine=sum(m for m, _, _ in self.calls), serving=sum(not m for m, _, _ in self.calls), wrong=wrong,
                     overlaps=self.overlaps, shared=sorted(serving & mine))
+
+    def report_replicas(self, replica_meshes, mine_mesh) -> dict:
+        """A router's replicas, each on a mesh of its own, and a refresh's
+        mine on ``mine_mesh``: each replica's calls and the threads that
+        sent them; the mine's calls; the calls on a group of none of these
+        meshes (or the mine's outside its mesh); the groups two of them
+        share; and every overlap.  A replica's ``switches`` count the
+        calls on its groups sent by another thread than the call before."""
+        meshes = [_group_ids(m) for m in replica_meshes]
+        mine = _group_ids(mine_mesh)
+        wrong = [(m, key) for m, key, _ in self.calls
+                 if (key not in mine if m else not any(key in g for g in meshes))]
+        every = meshes + [mine]
+        shared = sorted({k for i, a in enumerate(every) for b in every[i + 1:] for k in a & b})
+        replicas = []
+        for g in meshes:
+            threads = [t for m, key, t in self.calls if not m and key in g]
+            replicas.append(dict(calls=len(threads), threads=len(set(threads)),
+                                 switches=sum(a != b for a, b in zip(threads, threads[1:]))))
+        return dict(replicas=replicas, mine=sum(m for m, _, _ in self.calls),
+                    mine_threads=len({t for m, _, t in self.calls if m}), wrong=wrong, overlaps=self.overlaps,
+                    shared=shared)
+
+
+def _group_ids(*meshes):
+    return {id(g) for m in meshes for g in [*m._groups.values(), m._host_group]}
 
 
 def _in_thread(fn):
@@ -484,7 +508,7 @@ def _answers(gw, baskets, deadline_ms=HELD_DEADLINE_MS, wait_s=ANSWER_S):
 
 def _live_threads():
     return sorted(t.name for t in threading.enumerate()
-                  if t.is_alive() and t.name.startswith(("gateway-", "refresh-", "test-")))
+                  if t.is_alive() and t.name.startswith(("gateway-", "refresh-", "test-", "router-", "replica-set-")))
 
 
 def _held_cycles(mesh, gw, ctl, held, baskets, rb1, store_path, made, out):
@@ -928,4 +952,272 @@ def mesh_failing_refresh(mesh, rb, baskets, store_path, cfg, timeout_s, hold_dir
     out["refs"] = {key: (lambda r: (r.items, r.scores))(recommend(rbs[key[0]], baskets, top_k=5,
                                                                   batch_size=key[1], device="cpu", mesh=short))
                    for key in keys if key[0] in rbs}
+    return out
+
+
+# ------------------------------------------- the replicated tier on a mesh --
+def _mined(made):
+    """Within ``with``: ``refresh.compile_rulebook`` of this process, each
+    (result, rulebook) it compiles appended to ``made``."""
+    from repro_torch.serving import refresh as refresh_mod
+
+    class Captured:
+        def __enter__(self):
+            self.fn = refresh_mod.compile_rulebook
+
+            def captured(res, **kw):
+                rb = self.fn(res, **kw)
+                made.append((res, rb))
+                return rb
+
+            refresh_mod.compile_rulebook = captured
+            return self
+
+        def __exit__(self, *exc):
+            refresh_mod.compile_rulebook = self.fn
+
+    return Captured()
+
+
+class Placed:
+    """Within ``with``: every ``Gateway._prepare_everywhere`` of this process,
+    logged as (the gateway, the generation, the rulebook it places)."""
+
+    def __enter__(self):
+        from repro_torch.serving.gateway import Gateway
+
+        self.cls, self.fn, self.log = Gateway, Gateway._prepare_everywhere, []
+
+        def logged(gw, generation, make_rulebook):
+            def make():
+                rb = make_rulebook()
+                self.log.append((gw, generation, rb))
+                return rb
+
+            return self.fn(gw, generation, make)
+
+        Gateway._prepare_everywhere = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._prepare_everywhere = self.fn
+
+
+def _healthy(router, generation, timeout=30.0):
+    """Leader: wait until every replica is healthy at ``generation``; its stats."""
+    deadline = time.monotonic() + timeout
+    while True:
+        stats = router.stats()
+        if all(r["state"] == "healthy" and r["generation"] == generation for r in stats["replicas"]) \
+                or time.monotonic() > deadline:
+            return stats
+        time.sleep(0.02)
+
+
+def mesh_router(mesh, rb0, rb1, baskets, extra, store_path, cfg, top_k, max_batch, clients):
+    """F13, one rank of ``Router(rb0, 2, mesh=mesh)``, refreshed by
+    ``RefreshController(router, mesh=mesh)``: rank 0 sends ``baskets`` from
+    ``clients`` threads, kills replica 0's dispatch worker and swaps to
+    ``rb1`` at half load, waits until both replicas are healthy, appends
+    ``extra`` to the store and refreshes in a thread while it sends the
+    baskets again, then once more after the refresh; every other rank calls
+    ``refresh_now``.  Every collective is logged (:class:`GroupLog`), every
+    place (:class:`Placed`) and every mine.  After ``close()`` every rank
+    runs the mesh ``recommend`` of each generation at each bucket rank 0
+    answered with."""
+    from repro_torch.distributed import FaultConfig
+    from repro_torch.serving.refresh import RefreshController
+    from repro_torch.serving.router import Router
+
+    torch.set_num_threads(1)
+    made, mines = [], []
+    mine_delta = inc.mine_delta
+
+    def counted(*args, **kwargs):
+        mines.append(threading.current_thread().name)
+        return mine_delta(*args, **kwargs)
+
+    out = dict(rank=mesh.rank)
+    inc.mine_delta = counted
+    try:
+        with _mined(made), Placed() as placed, GroupLog() as groups:
+            router = Router(rb0, 2, mesh=mesh, device="cpu", top_k=top_k, max_batch=max_batch, warmup="ladder",
+                            max_wait_ms=2.0, fault=FaultConfig(max_retries=3, backoff_s=0.01), attempt_timeout_s=5.0)
+            ctl = RefreshController(store_path, router, cfg, mesh=mesh, device="cpu", min_confidence=0.4,
+                                    chunk_rows=64)
+            replica_meshes = [rep.gateway._mesh for rep in router.replicas]
+            if mesh.rank == 0:
+                def mid():
+                    router.fault_injection.kill_replica(0)
+                    out["swapped"] = router.hot_swap(rb1)
+
+                out["load"] = _drive(router, baskets, clients, mid=mid)
+                out["before_refresh"] = _healthy(router, 1)
+                append_chunks(iter([extra]), store_path)
+                refresher, box = _in_thread(ctl.refresh_now)
+                out["during"] = _drive(router, baskets, clients)
+                refresher.join(HOLD_S)
+                out["refreshed"] = box.get("value", box.get("error"))
+                out["after"] = _drive(router, baskets, clients)
+                out["stats"] = _healthy(router, out["refreshed"])
+                out["kills_fired"] = router.fault_injection.kills_fired
+            else:
+                for what, call in (("submit", lambda: router.submit(baskets[0])), ("stats", router.stats),
+                                   ("hot_swap", lambda: router.hot_swap(rb1))):
+                    try:
+                        call()
+                    except RuntimeError as e:
+                        out[f"follower_{what}"] = str(e)
+                out["refreshed"] = ctl.refresh_now()
+            out["generations"] = [rep.gateway.generation for rep in router.replicas]
+            router.close()
+            ctl.close()
+        out["groups"] = groups.report_replicas(replica_meshes, ctl.mine_mesh)
+    finally:
+        inc.mine_delta = mine_delta
+    out["threads_after_close"] = _live_threads()
+    out["mines"], out["history"] = mines, ctl.history
+    res2, rb2 = made[-1]
+    out["result"] = res2.as_dict()
+    # the refresh's generation, placed on each replica from this rank's own rulebook
+    gen2 = out["refreshed"]
+    out["placed"] = [[(g, rb is rb2) for gw2, g, rb in placed.log if gw2 is rep.gateway and g == gen2]
+                     for rep in router.replicas]
+    answered = None
+    if mesh.rank == 0:
+        responses = [r for key in ("load", "during", "after") for r in out[key][0] if r is not None]
+        answered = sorted({(r.generation, r.bucket) for r in responses})
+    rbs = {0: rb0, 1: rb1, gen2: rb2}
+    refs = {key: recommend(rbs[key[0]], baskets, top_k=top_k, batch_size=key[1], device="cpu", mesh=mesh)
+            for key in mesh.broadcast_object(answered)}
+    out["refs"] = {key: (r.items, r.scores) for key, r in refs.items()}
+    return out
+
+
+def mesh_refresh_single(mesh, rb0, baskets, stores, cfg, top_k, max_batch, clients, hold_dir):
+    """F12, one rank: ``RefreshController(target, mesh=mesh)`` where rank 0's
+    target serves on its one device and the other ranks pass None.  Four
+    controllers, each on its own copy of a store with its count cache and
+    40 rows appended (``stores``):
+
+    * ``router``: ``Router(rb0, 2)`` on rank 0; a delta refresh on every
+      rank while rank 0 sends the baskets, then the baskets again;
+    * ``gateway``: ``Gateway(rb0)`` on rank 0; a refresh whose mine raises
+      on the last rank (every rank raises, generation 0 serves on), then
+      the baskets, then a refresh that commits, then the baskets;
+    * ``full``: ``Gateway(rb0)``, ``mode="full"``: one refresh;
+    * ``close``: ``Gateway(rb0)``; the refresh's mine held on every rank
+      (:class:`HeldMines`) while rank 0 closes the controller, then
+      released; then every rank's ``refresh_now`` once more.
+
+    Each rank records every ``refresh_now``'s outcome, its history, the
+    results mined, and the threads left; rank 0 the responses and each
+    generation's single-device ``recommend`` at each bucket it answered."""
+    from repro_torch.serving.gateway import Gateway
+    from repro_torch.serving.refresh import RefreshController
+    from repro_torch.serving.router import Router
+
+    torch.set_num_threads(1)
+    lead = mesh.rank == 0
+    out = dict(rank=mesh.rank)
+    made = []
+
+    def controller(store, target, **kw):
+        return RefreshController(store, target, cfg, mesh=mesh, device="cpu", min_confidence=0.4, chunk_rows=64,
+                                 **kw)
+
+    def outcome(call):
+        try:
+            return dict(value=call())
+        except RuntimeError as e:
+            return dict(error=str(e))
+
+    rbs = {0: rb0}
+    served = []
+    with _mined(made):
+        # router
+        router = Router(rb0, 2, device="cpu", top_k=top_k, max_batch=max_batch, max_wait_ms=2.0) if lead else None
+        ctl = controller(stores["router"], router)
+        if lead:
+            before = _drive(router, baskets, clients)
+            refresher, box = _in_thread(ctl.refresh_now)
+            during = _drive(router, baskets, clients)
+            refresher.join(HOLD_S)
+            out["router"] = dict(refreshed=box.get("value", box.get("error")), during=during,
+                                 after=_drive(router, baskets, clients), before=before,
+                                 generations=[rep.gateway.generation for rep in router.replicas],
+                                 target=router.generation)
+            served += [r for key in ("before", "during", "after") for r in out["router"][key][0]]
+            router.close()
+        else:
+            out["router"] = dict(refreshed=ctl.refresh_now())
+        ctl.close()
+        out["router"].update(history=ctl.history, result=made[-1][0].as_dict())
+        rbs[1] = made[-1][1]
+
+        # gateway: a failed cycle, then one that commits
+        gw = Gateway(rb0, device="cpu", top_k=top_k, max_batch=max_batch, max_wait_ms=2.0) if lead else None
+        ctl = controller(stores["gateway"], gw)
+        failing = mesh.size - 1
+        mine_delta, calls = inc.mine_delta, []
+
+        def fails_once(*args, **kwargs):
+            calls.append(1)
+            if mesh.rank == failing and len(calls) == 1:
+                raise RuntimeError(f"the mine fails on rank {mesh.rank} on purpose")
+            return mine_delta(*args, **kwargs)
+
+        inc.mine_delta = fails_once
+        try:
+            failed = outcome(ctl.refresh_now)
+            out["gateway"] = dict(failed=failed, failures=ctl.metrics.failures)
+            if lead:
+                out["gateway"]["kept"] = (gw.generation, _drive(gw, baskets, clients))
+            out["gateway"]["refreshed"] = outcome(ctl.refresh_now)
+        finally:
+            inc.mine_delta = mine_delta
+        if lead:
+            out["gateway"]["after"] = _drive(gw, baskets, clients)
+            served += [r for r in out["gateway"]["kept"][1][0] + out["gateway"]["after"][0]]
+            gw.close()
+        ctl.close()
+        out["gateway"].update(history=ctl.history, result=made[-1][0].as_dict(), calls=len(calls))
+
+        # mode="full"
+        gw = Gateway(rb0, device="cpu", top_k=top_k, max_batch=max_batch) if lead else None
+        ctl = controller(stores["full"], gw, mode="full")
+        out["full"] = dict(refreshed=outcome(ctl.refresh_now))
+        ctl.close()
+        if lead:
+            out["full"]["generation"] = gw.generation
+            gw.close()
+        out["full"].update(history=ctl.history, result=made[-1][0].as_dict())
+
+        # close() during a cycle
+        gw = Gateway(rb0, device="cpu", top_k=top_k, max_batch=max_batch) if lead else None
+        ctl = controller(stores["close"], gw)
+        with HeldMines(mesh.rank, hold_dir, {1: ("close", None)}) as held:
+            if lead:
+                refresher, box = _in_thread(ctl.refresh_now)
+                held.hold("close", mesh.size)
+                closer, _ = _in_thread(ctl.close)
+                time.sleep(0.3)
+                waited = closer.is_alive()
+                held.release("close")
+                closer.join(HOLD_S)
+                refresher.join(HOLD_S)
+                out["close"] = dict(refreshed=dict(error=box.get("error"), value=box.get("value")),
+                                    close_waited=waited, closed=not closer.is_alive(), generation=gw.generation)
+                gw.close()
+            else:
+                out["close"] = dict(refreshed=outcome(ctl.refresh_now))
+                ctl.close()
+        out["close"]["again"] = outcome(ctl.refresh_now)
+        out["close"]["history"] = ctl.history
+    out["threads_after_close"] = _live_threads()
+    if lead:
+        keys = sorted({(r.generation, r.bucket) for r in served if r is not None})
+        out["refs"] = {key: (lambda r: (r.items, r.scores))(recommend(rbs[key[0]], baskets, top_k=top_k,
+                                                                      batch_size=key[1], device="cpu"))
+                       for key in keys}
     return out
