@@ -98,6 +98,13 @@ each with its own CUDA context, every rank's result checked:
   on one generation after the refresh, each rank's refresh dict-identical
   to ``[delta]``'s ``mine_delta``, K1 on every rank, K2 on every rank that
   serves, and K2 at each rank's blocks bit for bit ``rule_match_ordered``;
+  then, in the same spawn, ``[mesh-refresh-reshaped]``: ``Gateway(rb,
+  mesh=mesh)`` on the 2 x 2 mesh refreshed by ``RefreshController(gateway,
+  mesh=mine)`` whose ``mine`` is a (4, 1) mesh of the same ranks, under the
+  same rows and load on a copy of the store of its own: zero drops, every
+  response bit for bit its generation's mesh ``recommend``, each rank's
+  mine dict-identical to ``[delta]``'s, K1 on every rank and K2 = two warm
+  ladders + one a batch on every rank;
 * ``[mesh-cli]``: the mine CLI under ``torchrun`` on a 2 x 2 mesh prints the
   single-device CLI's last line;
 * ``[mesh-nccl]``: ``[mesh]`` over NCCL, one rank a card, only where the
@@ -2649,14 +2656,75 @@ def _router_stage(mesh, paths, rbs, cfg, out_made, replicas, on_mesh):
     return st, rb
 
 
+def _reshaped_stage(mesh, paths, rb0, cfg, out_made):
+    """``[mesh-refresh-reshaped]`` (F14), the last stage of
+    :func:`mesh_router_rank`: ``Gateway(rb0, mesh=mesh)`` serving on the
+    (2, 2) mesh on every rank, refreshed by ``RefreshController(gateway,
+    mesh=mine)`` in delta mode, ``mine`` a (4, 1) mesh of the same ranks
+    built here, on its own copy of the refresh store; the launch counts set
+    to 0 just before the gateway is built and read after both are closed.
+    Rank 0 sends the store's first 4,096 rows from 16 clients, appends
+    [delta]'s 5,000 rows and refreshes while the clients send the rows in
+    passes; every other rank calls ``refresh_now``."""
+    from repro_torch.data.store import open_store
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.serving.gateway import Gateway
+    from repro_torch.serving.refresh import RefreshController
+
+    dev, lead, path = mesh.device, mesh.rank == 0, paths["reshaped"]
+    packed = np.load(paths["requests"])
+    mine = Mesh((mesh.size, 1), ("data", "model"), dev, timeout_s=mesh.timeout_s)
+    st = dict(mine_shape=list(mine.shape.values()))
+    ops.reset_launch_counts()
+    with WarmCalls() as warms:
+        t = time.perf_counter()
+        gw = Gateway(rb0, mesh=mesh, device=dev, warmup="ladder", max_batch=64, top_k=10)
+        ctl = RefreshController(path, gw, cfg, mesh=mine, device=dev, chunk_rows=STREAM_CHUNK_ROWS,
+                                min_confidence=0.4, mode="delta")
+        st["build_s"] = time.perf_counter() - t
+        try:
+            if lead:
+                def submit(i):
+                    return gw.submit(packed[i])
+
+                loads = [_load(submit)]
+                t = time.perf_counter()
+                st["appended"] = int(APPEND_FRACTION * open_store(path).num_transactions)
+                append_rows(path, st["appended"], seed=1)
+                st["append_s"] = time.perf_counter() - t
+                st["refreshed"], st["window"], passes = _passes_during_refresh(
+                    ctl, submit, lambda: gw.cache.evict_generation(gw.generation))
+                st["refresh_s"] = st["window"][1] - st["window"][0]
+                st["loads"] = loads + passes
+                st["latency"] = gw.stats()["latency"]
+            else:
+                t = time.perf_counter()
+                st["refreshed"] = ctl.refresh_now()
+                st["refresh_s"] = time.perf_counter() - t
+            st["generation"] = gw.generation   # as refresh_now returned
+        finally:
+            gw.close()
+            ctl.close()
+    counts = ops.launch_counts()
+    st.update(k1=counts["support_count_packed"], k2=counts["rule_match"], k3=counts["support_count"],
+              warms=warms.calls, batches=gw.mesh_timing["batches"], history=ctl.history, threads=sorted(
+                  t.name for t in threading.enumerate() if t.name.startswith(("gateway-", "refresh-", "router-"))))
+    (mine_t0, mine_t1), (res, rb, compiled) = out_made[-2:]
+    st["digest"], st["marks"] = digest(res), (mine_t0, mine_t1, compiled)
+    return st, rb
+
+
 def mesh_router_rank(mesh, paths):
     """One rank of the replicated tier on the (2, 2) mesh:
     ``[mesh-router]`` (F13), ``Router(rb, 2, mesh=mesh)`` on every rank with
     ``RefreshController(router, mesh=mesh)``, then ``[mesh-refresh-router]``
     (F12), ``Router(rb, 3)`` of single-device gateways on rank 0 (the other
     ranks pass None) with ``RefreshController(router, mesh=mesh)`` on every
-    rank (:func:`_router_stage`).  Then, as references, every rank's mesh
-    ``recommend`` of each of ``[mesh-router]``'s generations and rank 0's
+    rank (:func:`_router_stage`), then ``[mesh-refresh-reshaped]`` (F14), a
+    mesh gateway refreshed by a mine on a (4, 1) mesh (:func:`_reshaped_stage`).
+    Then, as references, every rank's mesh ``recommend`` of each of
+    ``[mesh-router]``'s and ``[mesh-refresh-reshaped]``'s generations and rank 0's
     single-device ``recommend`` of each of ``[mesh-refresh-router]``'s, and
     K2 at this rank's blocks of a full bucket of the refreshed rulebook
     (rank 0: the whole bucket and rulebook, on its one device) against its
@@ -2692,14 +2760,16 @@ def mesh_router_rank(mesh, paths):
     try:
         router, rb_mesh = _router_stage(mesh, paths, rbs, cfg, made, ROUTER_MESH_REPLICAS, on_mesh=True)
         single, rb_single = _router_stage(mesh, paths, rbs, cfg, made, ROUTER_SINGLE_REPLICAS, on_mesh=False)
+        reshaped, rb_reshaped = _reshaped_stage(mesh, paths, rbs[0], cfg, made)
     finally:
         refresh_mod.compile_rulebook, refresh_mod.inc.mine_delta = compile_rulebook, mine_delta
-    out = dict(rank=mesh.rank, ready=ready, router=router, single=single)
+    out = dict(rank=mesh.rank, ready=ready, router=router, single=single, reshaped=reshaped)
     refs = [recommend(rb, packed, top_k=10, batch_size=1024, device=dev, mesh=mesh)
-            for rb in (rbs[0], rbs[1], rb_mesh)]
+            for rb in (rbs[0], rbs[1], rb_mesh, rb_reshaped)]
     router["k2_block"] = _k2_at_blocks(mesh, rb_mesh, packed, dev)
     if mesh.rank == 0:
-        router["refs"] = [(r.items, r.scores) for r in refs]
+        router["refs"] = [(r.items, r.scores) for r in refs[:3]]
+        reshaped["refs"] = [router["refs"][0], (refs[3].items, refs[3].scores)]
         singles = [recommend(place_rulebook(rb, dev), packed, top_k=10, batch_size=1024, device=dev)
                    for rb in (rbs[0], rb_single)]
         single["refs"] = [(r.items, r.scores) for r in singles]
@@ -2738,11 +2808,13 @@ def _check_loads(tag, loads, refs, singles=None):
     return seen
 
 
-def _window_line(st):
+def _window_line(st, last="exchange, swap and hand-over"):
     """The requests answered inside the leader's ``refresh_now`` (count,
     qps, p50 / p99, from the passes sent during it), and in each of its
-    stages on the leader: the start (the key, the rows check), the mine,
-    the compile, then the outcomes' exchange, the swap and the hand-over."""
+    stages on the leader: the start (the key or the command, the rows
+    check), the mine, the compile, then ``last`` (the outcomes' exchange,
+    the swap and the hand-over; or the exchange, the place and the
+    commit)."""
     t0, t1 = st["window"]
     passes = st["loads"][1:]
     done = np.concatenate([p["done"] for p in passes])
@@ -2755,17 +2827,19 @@ def _window_line(st):
 
     marks = [t0, *st["marks"], t1]
     stages = "; ".join(f"{name} {z - a:.3f} s: {inside(a, z)}" for name, a, z in
-                       zip(("start", "mine", "compile", "exchange, swap and hand-over"), marks, marks[1:]))
+                       zip(("start", "mine", "compile", last), marks, marks[1:]))
     return f"inside it {inside(t0, t1)}; by stage on the leader: {stages}"
 
 
 def mesh_router_phase(paths, want, want_by_gen, card):
-    """``[mesh-router]`` (F13) and ``[mesh-refresh-router]`` (F12) in one
-    spawn of the (2, 2) mesh (:func:`mesh_router_rank`).  Each stage: zero
+    """``[mesh-router]`` (F13), ``[mesh-refresh-router]`` (F12) and
+    ``[mesh-refresh-reshaped]`` (F14, a mesh gateway as the target, its
+    mine on a (4, 1) mesh) in one spawn of the (2, 2) mesh
+    (:func:`mesh_router_rank`).  Each stage: zero
     drops; every response bit for bit its generation's ``recommend`` (the
     mesh one for F13, the single-device one for F12; K2's ordered sum
-    makes both independent of the batch) and, for F13, within rtol 1e-5,
-    atol 1e-6 of the single-device one; after the refresh every replica
+    makes both independent of the batch) and, for F13 and F14, within rtol
+    1e-5, atol 1e-6 of the single-device one; after the refresh every replica
     healthy on one generation on every rank, and the refresh dict-identical
     to ``[delta]``'s ``mine_delta`` on every rank; K1 launched on every
     rank, K2 on every rank that serves (every rank in F13, rank 0 in F12),
@@ -2805,6 +2879,24 @@ def mesh_router_phase(paths, want, want_by_gen, card):
         states = [(r["state"], r["generation"]) for r in st["stats"]["replicas"]]
         if len(set(states)) != 1 or states[0] != ("healthy", st["refreshed"]):
             raise AssertionError(f"[{tag}] replicas after the refresh: {states}")
+    # F14
+    rs = lead["reshaped"]
+    gens_reshaped = _check_loads("mesh-refresh-reshaped", rs["loads"], rs["refs"],
+                                 {0: want_by_gen[0], 1: fs["refs"][1]})
+    if gens_reshaped[0] != [0] or any(not set(g) <= {0, 1} for g in gens_reshaped[1:]) or gens_reshaped[-1] != [1]:
+        raise AssertionError(f"[mesh-refresh-reshaped] generations by load {gens_reshaped}")
+    for o in outs:
+        st = o["reshaped"]
+        history = [(h["generation"], h["mode"]) for h in st["history"]]
+        if (st["refreshed"], st["generation"], history) != (1, 1, [(1, "delta")]) or st["digest"] != want["delta"] \
+                or st["k1"] == 0 or st["k3"] or st["threads"] or st["mine_shape"] != [4, 1]:
+            raise AssertionError(f"[mesh-refresh-reshaped] rank {o['rank']}: generation {st['refreshed']} "
+                                 f"({st['generation']} serving), history {history}, result equal to [delta]'s "
+                                 f"{st['digest'] == want['delta']}, K1 {st['k1']}, K3 {st['k3']}, threads left "
+                                 f"{st['threads']}")
+        if st["warms"] != 2 or st["k2"] != st["warms"] * len(MESH_LADDER) + st["batches"]:
+            raise AssertionError(f"[mesh-refresh-reshaped] rank {o['rank']}: K2 {st['k2']} for {st['warms']} warm "
+                                 f"ladders and {st['batches']} batches")
     log(f"[mesh-router] (2, 2) over gloo on the one card, both stages in one spawn: setup {setup_s:.3f} s, whole "
         f"spawn {total_s:.3f} s [{card}]")
     for tag, key, what in (("mesh-router", "router", f"Router(rb, {ROUTER_MESH_REPLICAS}, mesh=mesh)"),
@@ -2841,6 +2933,27 @@ def mesh_router_phase(paths, want, want_by_gen, card):
     log(f"[mesh-router] zero drops in both stages; every response bit for bit its generation's recommend (mesh / "
         f"single device); every replica healthy on generation {fr['refreshed']} / {fs['refreshed']} after the "
         f"refresh; every rank's refresh dict-identical to [delta]'s mine_delta")
+    walls, lat = [load["wall"] for load in rs["loads"]], rs["latency"]
+    followers = " / ".join(f"{o['reshaped']['refresh_s']:.3f}" for o in outs[1:])
+    log(f"[mesh-refresh-reshaped] Gateway(rb, mesh=(2, 2)) refreshed by RefreshController(gateway, "
+        f"mesh={tuple(rs['mine_shape'])}), built with its controller in {rs['build_s']:.3f} s; the first load "
+        f"{walls[0]:.3f} s = {REQUESTS / walls[0]:.0f} qps; {rs['batches']} batches, "
+        f"{REQUESTS * len(walls) / rs['batches']:.2f} requests a batch; then {len(walls) - 1} passes during and "
+        f"after the refresh of {' / '.join(f'{w:.3f}' for w in walls[1:])} s = "
+        f"{' / '.join(f'{REQUESTS / w:.0f}' for w in walls[1:])} qps; gateway p50 {lat['p50_ms']:.3f} ms, p99 "
+        f"{lat['p99_ms']:.3f} ms [{card}]")
+    log(f"[mesh-refresh-reshaped] appended {rs['appended']} rows in {rs['append_s']:.3f} s; the leader's "
+        f"refresh_now {rs['refresh_s']:.3f} s to generation {rs['refreshed']}, "
+        f"{_window_line(rs, 'exchange, place and commit')}; the followers' refresh_now {followers} s from their "
+        f"call [{card}]")
+    for o in outs:
+        st = o["reshaped"]
+        log(f"[mesh-refresh-reshaped] rank {o['rank']}: K1 {st['k1']}, K2 {st['k2']} launches ({st['warms']} warm "
+            f"ladders of {len(MESH_LADDER)}, {st['batches']} batches); generation {st['generation']} serving when "
+            f"refresh_now returned [{card}]")
+    log("[mesh-refresh-reshaped] zero drops; every response bit for bit its generation's mesh recommend on the "
+        "(2, 2) mesh and within tolerance of the single-device one; every rank's mine on the (4, 1) mesh "
+        "dict-identical to [delta]'s mine_delta")
     return outs
 
 
@@ -3217,8 +3330,8 @@ def main() -> int:
         paths.update(requests=os.path.join(root, "requests.npy"), refresh=os.path.join(root, "refresh-mesh"),
                      rulebook_swap=os.path.join(root, "rulebook-swap.npz"), faults=os.path.join(root, "faults-mesh"),
                      faults_dir=os.path.join(root, "faults"), router_mesh=os.path.join(root, "router-mesh"),
-                     router_single=os.path.join(root, "router-single"))
-        for copy in ("faults", "router_mesh", "router_single"):   # each appends [delta]'s rows to its own
+                     router_single=os.path.join(root, "router-single"), reshaped=os.path.join(root, "refresh-reshaped"))
+        for copy in ("faults", "router_mesh", "router_single", "reshaped"):   # each appends [delta]'s rows to its own
             shutil.copytree(paths["refresh"], paths[copy])
         np.save(paths["requests"], packed)
         rb2.to_host().save(paths["rulebook_swap"])
@@ -3254,6 +3367,7 @@ def main() -> int:
              mesh_refresh_launches_per_rank=[o["k1"] for o in gw_outs],
              mesh_router_launches_per_rank=[o["router"]["k1"] for o in router_outs],
              mesh_refresh_router_launches_per_rank=[o["single"]["k1"] for o in router_outs],
+             mesh_refresh_reshaped_launches_per_rank=[o["reshaped"]["k1"] for o in router_outs],
              examples_launches={n: e["launches"]["support_count_packed"] for n, e in examples.items()}),
         dict(name="rule_match", route="cuda", source="src/repro_torch/kernels/csrc/rule_match.cu",
              replaces="src/repro/kernels/rule_match.py:86", launches=k2_launches,
@@ -3276,6 +3390,7 @@ def main() -> int:
              mesh_router_ms_per_rank=[o["router"]["k2_block"]["ms"] for o in router_outs],
              mesh_refresh_router_launches_per_rank=[o["single"]["k2"] for o in router_outs],
              mesh_refresh_router_ms=router_outs[0]["single"]["k2_block"]["ms"],
+             mesh_refresh_reshaped_launches_per_rank=[o["reshaped"]["k2"] for o in router_outs],
              examples_launches={n: e["launches"]["rule_match"] for n, e in examples.items()}),
         dict(name="support_count", route="cuda", source="src/repro_torch/kernels/csrc/support_count.cu",
              replaces="src/repro/kernels/support_count.py:69", launches=k3_launches,

@@ -52,8 +52,9 @@ every rank's outcome; only when every rank holds its block does the leader
 commit, and the commit tells the followers to drop the older blocks.  A
 refresh from :class:`~repro_torch.serving.refresh.RefreshController` mines
 beside serving: one command starts the mine on every rank, which runs in a
-thread of its own on the controller's second mesh (groups of its own, so
-the two threads of a rank never share a group), and the gateway goes on
+thread of its own on the controller's mine mesh (groups of its own, so
+the two threads of a rank never share a group; its shape is the
+controller's, which may differ from the gateway's), and the gateway goes on
 answering batches meanwhile.  Once every rank has mined and the ranks have
 exchanged their outcomes (in the default group's store), the leader takes
 the stream, names the generation, and each rank places its block of its

@@ -24,10 +24,19 @@ refresh instead of a page.
 
 On a mesh (``mesh=``, one process a rank) every rank builds the controller
 beside its rank of a mesh :class:`~repro_torch.serving.gateway.Gateway`.
-Each rank has two meshes on the same ranks: the gateway's, whose groups
+The controller's mesh mines and the gateway's serves, as in the JAX
+package, where the controller mines on its ``mesh`` and the target's
+``hot_swap`` places the rulebook on the target's own mesh: the two may
+differ in shape (a gateway serving on a 2 x 2 ``("data", "model")`` mesh,
+refreshed by a data-parallel (4, 1) mine) or be one mesh; they only span
+the same ranks.  ``cfg.data_axes`` and ``cfg.model_axis`` are read on the
+controller's mesh, the gateway's ``data_axes`` and ``rule_axis`` on its
+own.  Each rank thus works on two sets of groups: the gateway's, which
 carry serving (the command stream, the batches' collectives, the place and
 the commit), and the controller's own :attr:`RefreshController.mine_mesh`
-(``Mesh.twin``, built at construction), whose groups carry only the mine.
+(a ``Mesh.twin`` of the controller's mesh, built at construction: never
+the gateway's groups, nor those of the mesh the caller passed), which
+carry only the mine.
 The leader's (rank 0's) poller decides when to refresh, by the same
 watermark hysteresis.  A cycle mines beside serving, as the JAX package's
 does: the leader sends one command that starts the mine on every rank, and
@@ -50,9 +59,11 @@ returns its generation once that generation serves there.
 
 A target that is not a mesh gateway is refreshed on the mesh too, as the
 JAX package mines on its mesh whatever the target: a
-:class:`~repro_torch.serving.router.Router` whose replicas serve on the
-mesh (every rank passes its rank of it), or a target on one device (a
-``Gateway`` or ``Router`` on rank 0, which the other ranks pass as None).
+:class:`~repro_torch.serving.router.Router` whose replicas serve on a mesh
+of the same ranks (every rank passes its rank of it), or a target on one
+device (a ``Gateway`` or ``Router`` on rank 0, which the other ranks pass
+as None).  At construction the ranks exchange what each passed, and every
+rank raises ``ValueError`` unless they agree on one of these kinds.
 No gateway's command stream carries these cycles, so the controller drives
 them: the leader starts each cycle on every rank with a key in the store
 (the rows it covers), every rank mines on the mine mesh (a follower in a
@@ -134,8 +145,9 @@ class RefreshController:
     (:meth:`Gateway.prepare_swap`).  With ``mesh`` every rank builds the
     controller alike, and the mine runs on every rank on the controller's
     own mesh, beside serving (the module docstring).  The target is then
-    this rank's mesh ``Gateway`` or mesh ``Router``, or a target on one
-    device, which rank 0 passes and the other ranks pass as None.
+    this rank's mesh ``Gateway`` or mesh ``Router``, built on this mesh or
+    on any other of the same ranks, or a target on one device, which rank
+    0 passes and the other ranks pass as None.
     ``min_append_rows`` is the watermark hysteresis: a refresh fires once at
     least that many rows sit above the last swapped watermark.
     """
@@ -172,17 +184,15 @@ class RefreshController:
         self.device = mesh_device(device, mesh)
         self._on_mesh = mesh is not None and mesh.size > 1
         self.leader = not self._on_mesh or mesh.rank == 0
-        placed = getattr(target, "_mesh", None)   # a mesh Gateway's or mesh Router's
+        placed = getattr(target, "_mesh", None)   # the mesh a mesh Gateway or mesh Router serves on
+        # the mine's own groups (building them is a collective call): no
+        # collective of the mine shares a group with serving's
+        self.mine_mesh = mesh.twin() if self._on_mesh else mesh
         if self._on_mesh:
-            if placed is not None and placed is not mesh:
-                raise ValueError("a RefreshController on a mesh refreshes a Gateway or Router built on the "
-                                 "same mesh, or one on rank 0's device")
-            if placed is None and (target is None) == self.leader:
-                raise ValueError("a RefreshController on a mesh refreshing a target on one device: rank 0 "
-                                 "passes the target, every other rank passes None")
+            self._agree_on_target(target, placed)
         # on a mesh, a mesh Gateway's command stream carries the cycles; for
         # any other target the controller drives them itself
-        self._via_gateway = self._on_mesh and placed is mesh and isinstance(target, Gateway)
+        self._via_gateway = self._on_mesh and placed is not None and isinstance(target, Gateway)
         self._driven = self._on_mesh and not self._via_gateway
         self._mesh_router = self._driven and placed is not None
         self.chunk_rows = chunk_rows
@@ -224,9 +234,6 @@ class RefreshController:
         self._outcomes: list = []
         self._handed = 0
         self._cycled = threading.Condition()
-        # the mine's own groups (building them is a collective call): no
-        # collective of the mine shares a group with serving's
-        self.mine_mesh = mesh.twin() if self._on_mesh else mesh
         self._stream = None
         self._cycles = 0   # the mine cycles run, alike on every rank
         self._closed = False
@@ -247,6 +254,28 @@ class RefreshController:
             if self._driven and not self.leader:
                 self._loop = threading.Thread(target=self._follow_cycles, name="refresh-follower", daemon=True)
                 self._loop.start()
+
+    def _agree_on_target(self, target, placed) -> None:
+        """Every rank of a mesh, at construction: exchange what each rank
+        passed as the target (in the mine mesh's keys of the default
+        group's store, on no group) and raise the same ``ValueError`` on
+        every rank unless the ranks agree on one of the two kinds."""
+        store, rank, size = self.mine_mesh.store, self.mesh.rank, self.mesh.size
+        kind = ("None" if target is None else "a target on one device" if placed is None
+                else f"a mesh {type(target).__name__} of {placed.size} ranks")
+        store.set(f"target/{rank}", kind)
+        keys = [f"target/{r}" for r in range(size)]
+        store.wait(keys, datetime.timedelta(seconds=self.mine_mesh.timeout_s))
+        kinds = [store.get(k).decode() for k in keys]
+        if kinds == [kinds[0]] * size and kinds[0].endswith(f" of {size} ranks") \
+                or kinds == ["a target on one device"] + ["None"] * (size - 1):
+            return
+        self.mine_mesh.destroy()
+        raise ValueError(
+            f"a RefreshController on a mesh of {size} ranks refreshes a mesh Gateway or mesh Router built on any "
+            "mesh of the same ranks (every rank passes its own; the controller's mesh mines, the target's serves), "
+            "or a target on one device (rank 0 passes it, every other rank passes None); the ranks passed: "
+            + ", ".join(f"rank {r} {k}" for r, k in enumerate(kinds)))
 
     # ------------------------------------------------------------ lifecycle --
     def start(self) -> "RefreshController":

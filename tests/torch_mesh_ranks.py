@@ -467,6 +467,19 @@ class GroupLog:
                     shared=shared)
 
 
+    def report_meshes(self, serving_meshes, caller, mine_meshes) -> dict:
+        """A refresh's calls against three sets of groups: serving's (the
+        target's meshes), the mesh the caller passed to the controller, and
+        the mine's (``mine_meshes``: its mine mesh and every one a failed
+        cycle built).  The calls of each, the calls on a group outside
+        their set, the groups two sets share, and every overlap."""
+        serving, mine, passed = _group_ids(*serving_meshes), _group_ids(*mine_meshes), _group_ids(caller)
+        wrong = [(m, key) for m, key, _ in self.calls if key not in (mine if m else serving)]
+        return dict(mine=sum(m for m, _, _ in self.calls), serving=sum(not m for m, _, _ in self.calls),
+                    caller=sum(key in passed for _, key, _ in self.calls), wrong=wrong, overlaps=self.overlaps,
+                    shared=sorted((serving & mine) | (serving & passed) | (mine & passed)))
+
+
 def _group_ids(*meshes):
     return {id(g) for m in meshes for g in [*m._groups.values(), m._host_group]}
 
@@ -1220,4 +1233,182 @@ def mesh_refresh_single(mesh, rb0, baskets, stores, cfg, top_k, max_batch, clien
         out["refs"] = {key: (lambda r: (r.items, r.scores))(recommend(rbs[key[0]], baskets, top_k=top_k,
                                                                       batch_size=key[1], device="cpu"))
                        for key in keys}
+    return out
+
+
+# ------------------------- a refresh mining on a mesh of its own shape --
+def mesh_refresh_reshaped(mesh, rb0, baskets, extra, stores, cfg, top_k, max_batch, clients, hold_dir):
+    """F14, one rank: the target serves on the spawn's mesh (``mesh``, 2 x 2),
+    and ``RefreshController(target, mesh=mine)`` mines on ``mine``, a
+    (``mesh.size``, 1) ``("data", "model")`` mesh of the same ranks, built
+    here.  Three controllers, each on its own copy of a store with its count
+    cache and 40 rows appended (``stores``), every collective of the
+    gateway's cycles after the failed one and of the router stage logged
+    (:class:`GroupLog`):
+
+    * ``gateway``: ``Gateway(rb0, mesh=mesh)``; a refresh whose mine raises
+      on the last rank (every rank raises, generation 0 serves on), then a
+      delta refresh on every rank while rank 0 sends the baskets before,
+      during and after it; then ``extra`` appended and a third refresh whose
+      mine is held on every rank (:class:`HeldMines`) while rank 0 closes
+      the gateway;
+    * ``router``: ``Router(rb0, 2, mesh=mesh)``; a delta refresh under load
+      as above, every place logged (:class:`Placed`); then ``extra``
+      appended and a refresh whose mine is held while rank 0 closes the
+      controller;
+    * ``full``: ``Gateway(rb0, mesh=mesh)``; a controller to which the
+      followers pass None (refused on every rank), then one in
+      ``mode="full"``: one refresh, then the baskets.
+
+    Each rank records every ``refresh_now``'s outcome and the generation
+    that serves right after it returns, its history, the results mined,
+    the group report of each stage, and the threads left; then every rank
+    runs the mesh ``recommend`` of each generation at each bucket rank 0
+    answered with, on ``mesh``."""
+    from repro_torch.distributed import FaultConfig
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.serving.gateway import Gateway
+    from repro_torch.serving.refresh import RefreshController
+    from repro_torch.serving.router import Router
+
+    torch.set_num_threads(1)
+    lead, last = mesh.rank == 0, mesh.size - 1
+    mine = Mesh((mesh.size, 1), ("data", "model"), mesh.device, timeout_s=mesh.timeout_s)
+    out = dict(rank=mesh.rank)
+    made = []
+
+    def controller(store, target, **kw):
+        return RefreshController(store, target, cfg, mesh=mine, device="cpu", min_confidence=0.4, chunk_rows=64,
+                                 **kw)
+
+    def outcome(call, serving):
+        """``call()``'s value or error, and the generation ``serving()``
+        reads right after it returns."""
+        try:
+            got = dict(value=call())
+        except RuntimeError as e:
+            got = dict(error=str(e))
+        got["serving"] = serving()
+        return got
+
+    def under_load(ctl, target, serving):
+        """Rank 0: the baskets before, during and after ``ctl.refresh_now``;
+        a follower: its ``refresh_now``."""
+        if not lead:
+            return dict(refreshed=outcome(ctl.refresh_now, serving))
+        before = _drive(target, baskets, clients)
+        refresher, box = _in_thread(ctl.refresh_now)
+        during = _drive(target, baskets, clients)
+        refresher.join(HOLD_S)
+        return dict(refreshed=dict(value=box.get("value"), error=box.get("error"), serving=serving()),
+                    before=before, during=during, after=_drive(target, baskets, clients))
+
+    def held_close(ctl, held, name, closing, serving):
+        """``extra`` appended; the next refresh's mine (``name`` in ``held``'s
+        plan) held on every rank while rank 0 runs ``closing()``, then
+        released."""
+        if not lead:
+            return dict(refreshed=outcome(ctl.refresh_now, serving))
+        append_chunks(iter([extra]), ctl.store_path)
+        refresher, box = _in_thread(ctl.refresh_now)
+        held.hold(name, mesh.size)
+        closer, _ = _in_thread(closing)
+        time.sleep(0.3)
+        waited = closer.is_alive()
+        held.release(name)
+        closer.join(HOLD_S)
+        refresher.join(HOLD_S)
+        return dict(refreshed=dict(value=box.get("value"), error=box.get("error"), serving=serving()),
+                    close_waited=waited, closed=not closer.is_alive())
+
+    rbs = {}
+    with _mined(made):
+        # gateway: a failed cycle, one under load, one closed while its mine is held
+        mine_delta, calls = inc.mine_delta, []
+
+        def fails_once(*args, **kwargs):   # before the mine: the count cache stays at 400 rows
+            calls.append(1)
+            if mesh.rank == last and len(calls) == 1:
+                raise RuntimeError(f"the mine fails on rank {mesh.rank} on purpose")
+            return mine_delta(*args, **kwargs)
+
+        inc.mine_delta = fails_once
+        try:
+            with HeldMines(mesh.rank, hold_dir, {3: ("gateway", None)}) as held:
+                gw = Gateway(rb0, mesh=mesh, device="cpu", top_k=top_k, max_batch=max_batch, max_wait_ms=2.0,
+                             warmup="ladder")
+                ctl = controller(stores["gateway"], gw)
+                serving = lambda: gw.generation  # noqa: E731
+                st = dict(failed=outcome(ctl.refresh_now, serving))
+                st["failures"] = ctl.metrics.failures
+                if lead:
+                    st["kept"] = _drive(gw, baskets, clients)
+                # from the rebuilt mine mesh on (the log waits for a collective whole, so an abort
+                # could not release a rank from it)
+                with GroupLog() as groups:
+                    first_mine = ctl.mine_mesh
+                    st.update(under_load(ctl, gw, serving))
+                    rbs[("gateway", 1)] = made[-1][1]
+                    st["result"] = made[-1][0].as_dict()
+                    st["closing"] = held_close(ctl, held, "gateway", gw.close, serving)
+                    if not lead:
+                        gw.close()
+                    ctl.close()
+            st.update(history=ctl.history, mines=held.calls,
+                      groups=groups.report_meshes([mesh], mine, [first_mine, *groups.twins]))
+        finally:
+            inc.mine_delta = mine_delta
+        out["gateway"] = st
+
+        # router: a refresh under load, then one whose controller closes while its mine is held
+        with GroupLog() as groups, Placed() as placed, \
+                HeldMines(mesh.rank, hold_dir, {2: ("router", None)}) as held:
+            router = Router(rb0, 2, mesh=mesh, device="cpu", top_k=top_k, max_batch=max_batch, max_wait_ms=2.0,
+                            fault=FaultConfig(max_retries=3, backoff_s=0.01), attempt_timeout_s=5.0)
+            replica_meshes = [rep.gateway._mesh for rep in router.replicas]
+            ctl = controller(stores["router"], router)
+            first_mine, twins = ctl.mine_mesh, len(groups.twins)
+            serving = lambda: [rep.gateway.generation for rep in router.replicas]  # noqa: E731
+            st = under_load(ctl, router, serving)
+            rb1 = rbs[("router", 1)] = made[-1][1]
+            st["result"] = made[-1][0].as_dict()
+            st["placed"] = [[g for gw2, g, rb in placed.log if gw2 is rep.gateway and rb is rb1]
+                            for rep in router.replicas]
+            st["closing"] = held_close(ctl, held, "router", ctl.close, serving)
+            if not lead:
+                ctl.close()
+            st["again"] = outcome(ctl.refresh_now, serving)
+            router.close()
+        st.update(history=ctl.history, mines=held.calls,
+                  groups=groups.report_meshes(replica_meshes, mine, [first_mine, *groups.twins[twins:]]))
+        out["router"] = st
+
+        # mode="full", after a controller whose followers pass None for the mesh gateway
+        gw = Gateway(rb0, mesh=mesh, device="cpu", top_k=top_k, max_batch=max_batch, max_wait_ms=2.0)
+        st = dict(refused=None)
+        try:
+            controller(stores["full"], gw if lead else None)
+        except ValueError as e:
+            st["refused"] = str(e)
+        ctl = controller(stores["full"], gw, mode="full")
+        st["refreshed"] = outcome(ctl.refresh_now, lambda: gw.generation)
+        rbs[("full", 1)] = made[-1][1]
+        if lead:
+            st["after"] = _drive(gw, baskets, clients)
+        gw.close()
+        ctl.close()
+        st.update(history=ctl.history, result=made[-1][0].as_dict())
+        out["full"] = st
+    out["threads_after_close"] = _live_threads()
+    # references: each stage's generations, the mesh recommend on ``mesh`` at each bucket rank 0 answered with
+    keys = None
+    if lead:
+        keys = sorted({(stage, r.generation, r.bucket) for stage, loads in (
+            ("gateway", ("kept", "before", "during", "after")), ("router", ("before", "during", "after")),
+            ("full", ("after",))) for key in loads for r in out[stage][key][0] if r is not None})
+    refs = {}
+    for stage, g, bucket in mesh.broadcast_object(keys):
+        r = recommend(rbs.get((stage, g), rb0), baskets, top_k=top_k, batch_size=bucket, device="cpu", mesh=mesh)
+        refs[(stage, g, bucket)] = (r.items, r.scores)
+    out["refs"] = refs
     return out
