@@ -37,7 +37,6 @@ from __future__ import annotations
 import dataclasses
 import importlib
 import math
-import time
 from typing import Callable
 
 import numpy as np
@@ -48,6 +47,7 @@ from repro_torch.core import itemsets as enc
 from repro_torch.core.mapreduce import MapReduceJob, gather_blocks, mapreduce, pad_rows_to_shards
 from repro_torch.launch.mesh import mesh_device
 from repro_torch.kernels import ops as kops
+from repro_torch.obs.mining import device_timer, phase
 k3 = importlib.import_module("repro_torch.kernels.support_count")
 
 COUNT_IMPLS = ("auto", "kernel", "ref")
@@ -268,7 +268,7 @@ def _place_candidates(chunk: np.ndarray, kp: int, num_items: int, cfg: AprioriCo
 
 
 def _count_level(count_step, t_dev, cand_sets: np.ndarray, num_items: int, cfg: AprioriConfig,
-                 mesh=None):
+                 mesh=None, obs=None):
     """Count supports for one level's candidates, in padded passes.
 
     Depth-2 pipeline: pass p+1 is placed and its count launched before the
@@ -276,22 +276,32 @@ def _count_level(count_step, t_dev, cand_sets: np.ndarray, num_items: int, cfg: 
     tensors are live on the device (the bound ``max_candidates_per_pass``
     exists to give).  On a mesh ``count_step`` is the mesh's step, the
     drain assembles its blocks and every rank gets every count.
+
+    ``obs`` times the ``cand_place``, ``count_kernel`` (the device span of
+    a pass's count launch by CUDA events, read after the drain's sync) and
+    ``host_sync`` phases; observation only.
     """
     k_total = cand_sets.shape[0]
     quantum = _candidate_quantum(cfg, mesh)
     counts = np.zeros(k_total, dtype=np.int64)
     pending = []
+    timer = device_timer(obs, "count_kernel", t_dev.device)
 
     def _drain(limit):
         while len(pending) > limit:
             start, m, out = pending.pop(0)
-            counts[start : start + m] = assemble_counts(out, cfg, mesh)[:m]
+            with phase(obs, "host_sync"):
+                counts[start : start + m] = assemble_counts(out, cfg, mesh)[:m]
+            timer.flush()
 
     for start in range(0, k_total, cfg.max_candidates_per_pass):
         chunk = cand_sets[start : start + cfg.max_candidates_per_pass]
         kp = _pad_bucket(chunk.shape[0], quantum)
-        c_dev, len_dev = _place_candidates(chunk, kp, num_items, cfg, t_dev.device, mesh)
-        pending.append((start, chunk.shape[0], count_step(t_dev, c_dev, len_dev)))
+        with phase(obs, "cand_place"):
+            c_dev, len_dev = _place_candidates(chunk, kp, num_items, cfg, t_dev.device, mesh)
+        with timer:
+            out = count_step(t_dev, c_dev, len_dev)
+        pending.append((start, chunk.shape[0], out))
         _drain(limit=1)   # sync pass p only once pass p+1 is in flight
     _drain(limit=0)
     return counts
@@ -316,7 +326,7 @@ def run_level_loop(
     is what lets a resumed mine regenerate them.
 
     ``obs`` (optional) records per-level counters and the candidate-
-    generation phase time; observation only.
+    generation phase time (its join and prune inside it); observation only.
     """
     min_count = max(1, math.ceil(cfg.min_support * n))
     levels = dict(resume_state["levels"]) if resume_state else {}
@@ -324,11 +334,10 @@ def run_level_loop(
 
     if start_k <= 1:
         # level 1: supports of singletons — the same count path
-        t_gen0 = time.perf_counter()
-        singles = enc.singleton_itemsets(num_items)
+        with phase(obs, "candidate_gen"):
+            singles = enc.singleton_itemsets(num_items)
         if obs is not None:
             obs.on_level_start(1, singles.shape[0])
-            obs.add_phase("candidate_gen", t_gen0, time.perf_counter())
         sup1 = count_fn(singles, 1)
         keep = sup1 >= min_count
         levels[1] = (singles[keep], sup1[keep])
@@ -342,19 +351,18 @@ def run_level_loop(
         prev_sets = levels.get(k - 1, (np.zeros((0, k - 1), np.int32),))[0]
         if prev_sets.shape[0] < k:   # cannot form a k-itemset
             break
-        t_gen0 = time.perf_counter()
-        if cfg.use_naive_paper_map:
-            # paper §3.3: enumerate every k-subset of the (frequent) item universe
-            freq_items = levels[1][0].ravel()
-            combos = cand_mod.all_k_subsets_of_universe(freq_items.size, k)
-            cands = freq_items[combos]
-        else:
-            cands = cand_mod.generate_candidates(prev_sets)
+        with phase(obs, "candidate_gen"):
+            if cfg.use_naive_paper_map:
+                # paper §3.3: enumerate every k-subset of the (frequent) item universe
+                freq_items = levels[1][0].ravel()
+                combos = cand_mod.all_k_subsets_of_universe(freq_items.size, k)
+                cands = freq_items[combos]
+            else:
+                cands = cand_mod.generate_candidates(prev_sets, obs=obs)
         if cands.shape[0] == 0:
             break
         if obs is not None:
             obs.on_level_start(k, cands.shape[0])
-            obs.add_phase("candidate_gen", t_gen0, time.perf_counter())
         sup = count_fn(cands, k)
         keep = sup >= min_count
         if obs is not None:
@@ -376,6 +384,7 @@ def mine(
     mesh=None,
     checkpoint_cb: Callable | None = None,
     resume_state: dict | None = None,
+    obs=None,
 ) -> AprioriResult:
     """Level-wise Apriori over a dense {0,1} transaction matrix on ``device``.
 
@@ -384,6 +393,9 @@ def mine(
     to the single-device mine's.
     checkpoint_cb(level_k, levels_dict): called after each completed level;
     ``resume_state`` = {'levels': ..., 'next_k': ...} restarts from one.
+    ``obs`` (optional mining observer, ``obs.MiningObs``): per-level
+    counters and phase times, as ``streaming.mine_streamed`` records them;
+    observation only.
     """
     dev = mesh_device(device, mesh)
     _check_cfg(cfg)
@@ -394,6 +406,6 @@ def mine(
     count_step = make_count_step(cfg, mesh)
 
     def count_fn(cand_sets, level_k):
-        return _count_level(count_step, t_dev, cand_sets, num_items, cfg, mesh)
+        return _count_level(count_step, t_dev, cand_sets, num_items, cfg, mesh, obs=obs)
 
-    return run_level_loop(count_fn, n, num_items, cfg, checkpoint_cb, resume_state)
+    return run_level_loop(count_fn, n, num_items, cfg, checkpoint_cb, resume_state, obs=obs)

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.obs.mining import phase
+
 
 def _row_view(a: np.ndarray) -> np.ndarray:
     """View (F, k) rows as a 1-D structured array for set operations."""
@@ -35,18 +37,34 @@ def lex_sort_rows(a: np.ndarray) -> np.ndarray:
     return a[order]
 
 
-def generate_candidates(frequent: np.ndarray) -> np.ndarray:
+def generate_candidates(frequent: np.ndarray, obs=None) -> np.ndarray:
     """F_{k-1} ⋈ F_{k-1} join + downward-closure prune -> candidates (C, k).
 
     ``frequent``: (F, k-1) lexicographically sorted itemsets. Two itemsets
     sharing their first k-2 items join into a k-candidate; the prune keeps
     only candidates whose every (k-1)-subset is frequent.
+
+    ``obs`` (optional mining observer) times the ``candidate_join`` and
+    ``candidate_prune`` phases and counts the joined rows
+    (``on_candidates_joined``); observation only.
     """
     frequent = np.asarray(frequent, dtype=np.int32)
     f, km1 = frequent.shape
     if f < 2:
         return np.zeros((0, km1 + 1), dtype=np.int32)
+    with phase(obs, "candidate_join"):
+        candidates = _join(frequent)
+    if obs is not None:
+        obs.on_candidates_joined(km1 + 1, candidates.shape[0])
+    if candidates.shape[0] == 0:
+        return candidates
+    with phase(obs, "candidate_prune"):
+        return _prune(candidates, frequent)
 
+
+def _join(frequent: np.ndarray) -> np.ndarray:
+    """Every pair of rows sharing their first k-2 items, as a k-row."""
+    f, km1 = frequent.shape
     # --- join: group rows by their (k-2)-prefix; groups are contiguous. ---
     if km1 == 1:
         group_change = np.zeros(f - 1, dtype=bool)  # single global group
@@ -66,11 +84,14 @@ def generate_candidates(frequent: np.ndarray) -> np.ndarray:
     a_idx = np.repeat(np.arange(f), reps)
     seg_start = np.concatenate([[0], np.cumsum(reps)[:-1]])
     b_idx = a_idx + 1 + (np.arange(total) - np.repeat(seg_start, reps))
-    candidates = np.concatenate([frequent[a_idx], frequent[b_idx][:, -1:]], axis=1)
+    return np.concatenate([frequent[a_idx], frequent[b_idx][:, -1:]], axis=1)
 
-    # --- prune: every (k-1)-subset must be frequent. Dropping the last or ---
-    # second-to-last column reproduces the two parents (frequent by
-    # construction), so only columns 0..k-3 need checking.
+
+def _prune(candidates: np.ndarray, frequent: np.ndarray) -> np.ndarray:
+    """Every (k-1)-subset must be frequent. Dropping the last or
+    second-to-last column reproduces the two parents (frequent by
+    construction), so only columns 0..k-3 need checking."""
+    km1 = frequent.shape[1]
     keep = np.ones(candidates.shape[0], dtype=bool)
     for drop in range(km1 - 1):
         sub = np.delete(candidates, drop, axis=1)

@@ -66,6 +66,7 @@ from repro_torch.core import son as son_mod
 from repro_torch.core.mapreduce import all_reduce
 from repro_torch.data.pipeline import ShardedBatchIterator
 from repro_torch.launch.mesh import mesh_device
+from repro_torch.obs.mining import device_timer
 from repro_torch.distributed.checkpoint import (
     CheckpointMismatch,
     MiningCheckpoint,
@@ -169,14 +170,17 @@ def _count_pass_chunks(
     indices so a resumed pass checkpoints at the same points.
 
     ``obs`` attributes the pass's time: ``prefetch_stall`` is the fold
-    blocking on the chunk iterator, ``count_kernel`` the (asynchronous)
-    dispatch of the accumulate step, ``host_sync`` the final device -> host
+    blocking on the chunk iterator, ``count_kernel`` the device span of
+    each chunk's accumulate step (CUDA events, read after the pass's sync:
+    the launches and the device's waits for the host between them, so not
+    kernel time; host time on the CPU), ``host_sync`` the final device -> host
     copy that also drains the device queue, ``checkpoint_write`` the
     mid-pass saves.  On a mesh ``kp`` is the whole bucket, the fold is
     this rank's, and the result and each save are the reduced counts.
     """
     acc = _init_acc(kp, device, init=init_acc, cfg=cfg, mesh=mesh)
     done = chunks_done
+    timer = device_timer(obs, "count_kernel", device)
     it = ShardedBatchIterator(chunks, device, mesh=mesh, data_axes=cfg.data_axes, prefetch=prefetch)
     try:
         if obs is None:
@@ -193,11 +197,9 @@ def _count_pass_chunks(
                     t_chunk = next(src)
                 except StopIteration:
                     break
-                t1 = time.perf_counter()
-                accum_step(t_chunk, c_dev, len_dev, acc)
-                t2 = time.perf_counter()
-                obs.add_phase("prefetch_stall", t0, t1)
-                obs.add_phase("count_kernel", t1, t2)
+                obs.add_phase("prefetch_stall", t0, time.perf_counter())
+                with timer:
+                    accum_step(t_chunk, c_dev, len_dev, acc)
                 obs.on_chunk(int(t_chunk.shape[0]))
                 done += 1
                 if save_fn is not None and save_every > 0 and done % save_every == 0:
@@ -211,6 +213,7 @@ def _count_pass_chunks(
     t0 = time.perf_counter()
     out = _reduced(acc, cfg, mesh)
     obs.add_phase("host_sync", t0, time.perf_counter())
+    timer.flush()
     return out
 
 
@@ -481,6 +484,7 @@ def count_union_streamed(
             c_dev, len_dev = ap._place_candidates(chunk_c, kp, num_items, cfg, dev, mesh)
             units.append((k, start, chunk_c.shape[0], c_dev, len_dev,
                           _init_acc(kp, dev, cfg=cfg, mesh=mesh)))
+    timer = device_timer(obs, "count_kernel", dev)
     if units:
         it = ShardedBatchIterator(_packed_chunks(store, chunk_rows, shards=shards), dev,
                                   mesh=mesh, data_axes=cfg.data_axes, prefetch=prefetch)
@@ -497,12 +501,10 @@ def count_union_streamed(
                         t_chunk = next(src)
                     except StopIteration:
                         break
-                    t1 = time.perf_counter()
-                    for _, _, _, c_dev, len_dev, acc in units:
-                        accum_step(t_chunk, c_dev, len_dev, acc)
-                    t2 = time.perf_counter()
-                    obs.add_phase("prefetch_stall", t0, t1)
-                    obs.add_phase("count_kernel", t1, t2)
+                    obs.add_phase("prefetch_stall", t0, time.perf_counter())
+                    with timer:
+                        for _, _, _, c_dev, len_dev, acc in units:
+                            accum_step(t_chunk, c_dev, len_dev, acc)
                     obs.on_chunk(int(t_chunk.shape[0]))
         finally:
             it.close()
@@ -513,6 +515,7 @@ def count_union_streamed(
         counts[k][start : start + rows] = _reduced(acc, cfg, mesh)[:rows]
     if obs is not None:
         obs.add_phase("host_sync", t_sync0, time.perf_counter())
+    timer.flush()
     return counts
 
 

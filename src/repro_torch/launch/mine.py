@@ -23,7 +23,8 @@
   PYTHONPATH=src python -m repro_torch.launch.mine ... --store DIR --count-cache
   PYTHONPATH=src python -m repro_torch.launch.mine ... --store DIR --delta
   # live per-level progress, job counters (with the count step's static
-  # roofline, ``static_cost``) and a perfetto-loadable trace:
+  # roofline, ``static_cost``, for a streamed mine) and a perfetto-loadable
+  # trace on torch.profiler's clock, of a streamed or an in-memory mine:
   PYTHONPATH=src python -m repro_torch.launch.mine ... --store DIR \
       --progress --trace-out mine-trace.json --metrics-out mine-metrics.json
   # on a 2 x 2 data x model mesh of 4 local ranks (gloo), as the JAX CLI's
@@ -61,7 +62,10 @@ def static_count_cost(cfg, mesh, rows: int, num_items: int, k_cands: int, *, chi
     The roofline is ``chip``'s (``launch.roofline``; the SXM part by
     default), the operations at the rate of ``cfg.operand_dtype``.  Paired
     with the measured ``count_kernel`` phase seconds this turns padding and
-    dispatch overhead into a reported ratio.
+    dispatch overhead into a reported ratio, not a kernel's efficiency: on a
+    card those seconds are the device span of each chunk's launches by CUDA
+    events, the device's waits for the host between them included (a
+    streamed mine is launch-bound); on the CPU, host time.
     """
     import torch
 
@@ -156,13 +160,13 @@ def main(argv=None):
                          "cold/invalid cache or an oversized delta, the report says "
                          "which); needs --store")
     ap.add_argument("--progress", action="store_true",
-                    help="streamed mining: live per-level progress lines with rows/s "
-                         "throughput and ETA (stderr)")
+                    help="live per-level progress lines (with rows/s throughput and "
+                         "ETA when streamed; stderr)")
     ap.add_argument("--trace-out", default="", metavar="PATH",
-                    help="streamed mining: write a Chrome trace-event JSON of the "
-                         "mining phase spans (load in ui.perfetto.dev)")
+                    help="write a Chrome trace-event JSON of the mining phase spans, "
+                         "on torch.profiler's clock (load in ui.perfetto.dev)")
     ap.add_argument("--metrics-out", default="", metavar="PATH",
-                    help="streamed mining: write the Hadoop-style job counters as JSON")
+                    help="write the Hadoop-style job counters as JSON")
     args = ap.parse_args(argv)
 
     if (args.checkpoint_every or args.resume) and not args.store:
@@ -174,9 +178,9 @@ def main(argv=None):
     ):
         ap.error("--max-partition-retries needs --store DIR and --algo son "
                  "(or --count-cache/--delta, which run SON phase 1 inside)")
-    if (args.progress or args.trace_out or args.metrics_out) and not args.store:
-        ap.error("--progress/--trace-out/--metrics-out instrument the streamed "
-                 "driver: add --store DIR")
+    if (args.progress or args.trace_out or args.metrics_out) and not args.store and args.algo == "son":
+        ap.error("--progress/--trace-out/--metrics-out instrument the level-wise "
+                 "mine or the streamed drivers: add --store DIR, or drop --algo son")
     shape = None
     if args.mesh:
         try:
@@ -258,7 +262,8 @@ def run(args, mesh):
         from repro_torch.obs import MetricsRegistry, MiningObs, MiningProgress, Tracer
 
         tracer = Tracer(sample_rate=1.0) if args.trace_out else None
-        progress = MiningProgress(total_rows=store.num_transactions) if args.progress else None
+        total = store.num_transactions if store is not None else args.transactions
+        progress = MiningProgress(total_rows=total) if args.progress else None
         obs = MiningObs(registry=MetricsRegistry(), tracer=tracer, progress=progress)
 
     t0 = time.time()
@@ -298,7 +303,7 @@ def run(args, mesh):
     elif args.algo == "son":
         res = mine_son(db, cfg, device=device, mesh=mesh, num_partitions=args.partitions)
     else:
-        res = mine(db, cfg, device=device, mesh=mesh)
+        res = mine(db, cfg, device=device, mesh=mesh, obs=obs)
     dt = time.time() - t0
 
     print(f"[mine] {dt:.2f}s on {device}; min_count={res.min_count}")
@@ -319,7 +324,7 @@ def run(args, mesh):
 
         rb = compile_rulebook(
             res, min_confidence=args.min_confidence, score=args.rule_score,
-            max_rules=args.max_rules, num_items=store.num_items if store else args.items,
+            max_rules=args.max_rules, num_items=store.num_items if store else args.items, obs=obs,
         )
         rb.save(args.rulebook)
         print(f"[rulebook] {rb.num_rules} rules ({rb.num_rows} padded rows, "
@@ -348,10 +353,13 @@ def run(args, mesh):
                     static = {"error": f"{type(e).__name__}: {e}"}
                 else:
                     static["count_dispatches"] = dispatches
+                    # each chunk's launches' span on the device (CUDA events),
+                    # host launch gaps included; host time on the CPU
                     static["measured_count_kernel_s"] = measured
                     ideal = static["roofline_s_per_dispatch"] * max(dispatches, 1)
-                    # the interesting signal is its TREND as padding and
-                    # bucketing knobs move, not its absolute value
+                    # padding and dispatch overhead against the roofline, not
+                    # kernel efficiency: the interesting signal is its TREND as
+                    # padding and bucketing knobs move, not its absolute value
                     static["measured_vs_roofline"] = measured / max(ideal, 1e-12)
                 out["static_cost"] = static
             with open(args.metrics_out, "w") as f:

@@ -15,6 +15,20 @@ sites never branch.
 
 Span ends are idempotent: failure paths can ``end()`` a span that a success
 path may also try to close, and only the first close is recorded.
+
+**One clock with the device trace.**  The exporter writes ``ts`` on the
+clock of ``torch.profiler``'s Chrome trace: Unix-epoch microseconds (the
+profiler's ``ts`` plus ``baseTimeNanoseconds`` / 1e3), from an anchor pair
+(``perf_counter``, ``time_ns``) taken at the tracer's epoch.  ``ts`` and
+``dur`` are whole microseconds (``dur`` = rounded end − rounded start), so
+a child still nests inside its parent at Unix-epoch magnitudes.  While a
+profiler records, a span opened live (:meth:`Tracer.span`,
+:meth:`Tracer.live`) is also a ``record_function`` range of its name, so
+the profiler's trace carries the program's spans of the threads it records
+(with ``profile_all_threads``, every thread's, the gateway's too);
+back-dated spans (:meth:`Tracer.add_span`) and spans opened with
+:meth:`Tracer.child`, which may end on another thread, are not mirrored.  With no profiler a live span pays one boolean
+check.
 """
 
 from __future__ import annotations
@@ -27,13 +41,36 @@ from collections import deque
 from contextlib import contextmanager
 from typing import Dict, Optional
 
+import torch
+import torch.autograd.profiler as _autograd_profiler
+
+
+def mirror(name: str):
+    """A profiler range named ``name``, entered, while a ``torch.profiler``
+    records; else ``None``.  Close it with :func:`unmirror` on the same
+    thread, innermost first.  The check is the profiler module's flag, set
+    on every thread (``torch.autograd._profiler_enabled()`` is False on a
+    thread the profiler did not start from, and on every thread under
+    ``profile_all_threads``); a range on a thread the profiler does not
+    record is dropped by it."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return None
+    rf = torch.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
+def unmirror(rf) -> None:
+    if rf is not None:
+        rf.__exit__(None, None, None)
+
 
 class Span:
     """One timed operation.  ``end()`` is idempotent; attributes set at end
     merge over those set at start."""
 
     __slots__ = ("tracer", "trace_id", "span_id", "parent_id", "name",
-                 "t0", "t1", "attrs", "tid", "_ended")
+                 "t0", "t1", "attrs", "tid", "_ended", "_mirror")
 
     def __init__(self, tracer: "Tracer", trace_id: int, span_id: int,
                  parent_id: Optional[int], name: str, t0: float, attrs: dict):
@@ -47,6 +84,7 @@ class Span:
         self.attrs = attrs
         self.tid = threading.get_ident()
         self._ended = False
+        self._mirror = None
 
     def child(self, name: str, **attrs) -> "Span":
         """Start a child span on the same trace (current time, this thread)."""
@@ -57,6 +95,9 @@ class Span:
             return
         self._ended = True
         self.t1 = time.perf_counter()
+        if self._mirror is not None and threading.get_ident() == self.tid:
+            unmirror(self._mirror)
+        self._mirror = None
         if attrs:
             self.attrs.update(attrs)
         self.tracer._finish(self)
@@ -81,6 +122,7 @@ class Tracer:
         self._done = deque(maxlen=int(capacity))
         self._thread_names: Dict[int, str] = {}
         self.epoch = time.perf_counter()
+        self.epoch_unix_ns = time.time_ns()   # the same instant on the profiler's clock
         self.sampled_roots = 0
 
     # -- span creation -----------------------------------------------------
@@ -130,9 +172,19 @@ class Tracer:
         sp.t1 = t1
         self._finish(sp)
 
+    def live(self, parent: Optional[Span], name: str, **attrs) -> Optional[Span]:
+        """:meth:`child`, mirrored as a profiler range while a profiler
+        records (:func:`mirror`): end it on this thread, innermost first."""
+        sp = self.child(parent, name, **attrs)
+        if sp is not None:
+            sp._mirror = mirror(name)
+            if sp._mirror is not None:
+                sp.t0 = time.perf_counter()   # inside the range, whose start the profiler stamped
+        return sp
+
     @contextmanager
     def span(self, parent: Optional[Span], name: str, **attrs):
-        sp = self.child(parent, name, **attrs)
+        sp = self.live(parent, name, **attrs)
         try:
             yield sp
         finally:
@@ -149,10 +201,15 @@ class Tracer:
         with self._lock:
             return list(self._done)
 
+    def unix_us(self, t: float) -> int:
+        """A ``perf_counter`` reading as whole Unix-epoch microseconds, the
+        clock of ``torch.profiler``'s Chrome trace."""
+        return round(self.epoch_unix_ns / 1e3 + (t - self.epoch) * 1e6)
+
     def export_chrome(self) -> dict:
         """Chrome trace-event JSON (perfetto-loadable): one "X" complete
-        event per finished span, µs timestamps relative to tracer epoch,
-        plus "M" thread-name metadata."""
+        event per finished span, whole Unix-epoch microseconds (the
+        profiler's clock), plus "M" thread-name metadata."""
         with self._lock:
             spans = list(self._done)
             thread_names = dict(self._thread_names)
@@ -166,11 +223,12 @@ class Tracer:
             if sp.parent_id is not None:
                 args["parent_id"] = sp.parent_id
             args.update(sp.attrs)
+            ts = self.unix_us(sp.t0)
             events.append({
                 "name": sp.name,
                 "ph": "X",
-                "ts": (sp.t0 - self.epoch) * 1e6,
-                "dur": max(0.0, (sp.t1 - sp.t0) * 1e6),
+                "ts": ts,
+                "dur": max(0, self.unix_us(sp.t1) - ts),
                 "pid": 1,
                 "tid": tid_map.get(sp.tid, 0),
                 "args": args,

@@ -95,6 +95,11 @@ class MicroBatcher:
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         self._dispatch_fn = dispatch_fn
+        # perf_counter time the batch being dispatched left the queue (its
+        # first take; for a later top_k group of it, when the group before
+        # returned), set before each dispatch_fn call, so the dispatcher can
+        # time the collect
+        self.collect_start = 0.0
         self._max_batch = int(max_batch)
         self._max_wait_s = max(0.0, float(max_wait_ms)) / 1e3
         # optional serving.controller.AdaptiveMaxWait: consulted once per
@@ -229,6 +234,7 @@ class MicroBatcher:
         stop = False
         while not stop:
             item = self._q.get()
+            self.collect_start = time.perf_counter()
             if item is _SENTINEL:
                 break
             batch = [item]
@@ -259,6 +265,7 @@ class MicroBatcher:
             if item is not _SENTINEL:
                 tail.append(item)
         for start in range(0, len(tail), self._max_batch):
+            self.collect_start = time.perf_counter()
             self._dispatch_tracked(tail[start : start + self._max_batch])
 
     def _drop_expired(self, batch: list) -> list:
@@ -320,3 +327,4 @@ class MicroBatcher:
                         r.future.set_exception(e)
                         if self._metrics is not None:
                             self._metrics.record_response(0.0, failed=True)
+            self.collect_start = time.perf_counter()

@@ -243,7 +243,9 @@ class Gateway:
         faster. ``None`` keeps the classic fixed wait.
 
         ``tracer``: optional :class:`repro_torch.obs.Tracer`; sampled requests get
-        cache-probe / queue-wait / batch-assembly / device-dispatch spans.
+        cache-probe / queue-wait / batch-assembly / device-dispatch spans, and
+        a batch that holds one gets a ``gateway.batch`` span of its cycle
+        (:class:`_CycleTrace`, one card).
         ``trace_root=False`` (the router's replicas) makes the gateway only
         ever CONTINUE a trace handed in by its caller, never start one —
         sampling then happens once, at the router."""
@@ -600,16 +602,18 @@ class Gateway:
             torch.cuda.synchronize(self.device)
         self._laps.append(time.perf_counter())
 
-    def _match(self, b: np.ndarray, gen: _Generation, top_k: int, faults: StepFaults | None = None):
+    def _match(self, b: np.ndarray, gen: _Generation, top_k: int, faults: StepFaults | None = None,
+               lap=None):
         """Pad-free core: one padded bucket of uint32 rows to the card (as
         int32 word views), through match + top-k, and back to host arrays
-        (:func:`recommend.match_batch`).  The copy back waits for the
-        launches, so a caller's clock around this call spans the device
-        work.  On a mesh every rank runs it on the same bucket, ``faults``
-        riding the batch's all-gathers."""
+        (:func:`recommend.match_batch`, which calls ``lap`` at each stage's
+        end on one card).  The copy back waits for the launches, so a
+        caller's clock around this call spans the device work.  On a mesh
+        every rank runs it on the same bucket, ``faults`` riding the batch's
+        all-gathers."""
         if self._mesh is None:
             return match_batch(self._step, b.view(np.int32), gen.rulebook, top_k=top_k,
-                               exclude_basket=self.exclude_basket)
+                               exclude_basket=self.exclude_basket, lap=lap)
         self._laps = [time.perf_counter()]
         out = match_batch(self._step, b.view(np.int32), gen.rulebook, top_k=top_k,
                           exclude_basket=self.exclude_basket, mesh=self._mesh, data_axes=self._data_axes,
@@ -805,9 +809,25 @@ class Gateway:
         The generation reference is read ONCE per dispatch — the whole batch
         is answered by a single rulebook, so responses can never mix
         generations within a batch.  On a mesh it is read under the command
-        lock, and the batch's command names it to the followers."""
-        k = group[0].top_k
+        lock, and the batch's command names it to the followers.  A traced
+        batch's cycle starts at the batcher's ``collect_start``."""
         t_drain = time.perf_counter()
+        tr = self._tracer
+        if tr is None or self._mesh is not None:
+            return self._answer(group, t_drain, None)
+        first = next((r.span for r in group if r.span is not None), None)
+        if first is None:
+            return self._answer(group, t_drain, None)
+        cycle = _CycleTrace(tr, first, self._batcher.collect_start, t_drain, self.device)
+        try:
+            self._answer(group, t_drain, cycle)
+        except BaseException:
+            cycle.end(outcome="error")   # closes the open stage's profiler range on this thread
+            raise
+
+    def _answer(self, group: list, t_drain: float, cycle) -> None:
+        k = group[0].top_k
+        tr = self._tracer
         bucket = pow2_bucket(len(group), self.max_batch, self._row_multiple)
         b = np.zeros((bucket, self._words), np.uint32)
         for i, r in enumerate(group):
@@ -815,7 +835,11 @@ class Gateway:
         t_asm = time.perf_counter()
         if self._mesh is None:
             gen = self._generation
-            idx, vals = self._match(b, gen, k)
+            if cycle is None:
+                idx, vals = self._match(b, gen, k)
+            else:
+                cycle.lap("assemble")
+                idx, vals = self._match(b, gen, k, lap=cycle.lap)
         else:
             with self._commands.lock:
                 gen = self._generation
@@ -824,7 +848,6 @@ class Gateway:
                 self.mesh_timing["broadcast_s"] += time.perf_counter() - t_send
                 idx, vals = self._mesh_batch(b, gen.generation, k)
         t_dev = time.perf_counter()
-        tr = self._tracer
         if tr is not None:
             for r in group:
                 if r.span is not None:
@@ -844,10 +867,55 @@ class Gateway:
             latency = now - r.t_submit
             self.metrics.record_response(latency)
             if r.span is not None:
-                # the per-request "where did the time go" breakdown the p99
-                # bench row reads straight off the root span (§13)
-                r.span.end(outcome="ok", generation=gen.generation, bucket=bucket,
-                           queue_ms=(t_drain - r.t_submit) * 1e3,
-                           batch_ms=(t_asm - t_drain) * 1e3,
-                           device_ms=(t_dev - t_asm) * 1e3)
+                r.span.end(outcome="ok", generation=gen.generation, bucket=bucket)
             r.future.set_result(Response(items, scores, gen.generation, False, latency, bucket))
+        if cycle is not None:
+            cycle.end(batch=len(group), bucket=bucket)
+
+
+class _CycleTrace:
+    """One traced batch's cycle on the dispatch thread: a ``gateway.batch``
+    span from the batcher's first take (``t_first``) to the last answer
+    set, under the first sampled request's span (which ends at its own
+    answer, inside the demux).  Its stages tile it: ``cycle.collect``
+    (back-dated), then ``cycle.assemble``, ``cycle.h2d``, ``cycle.match``
+    (the K2 enqueue), ``cycle.topk``, ``cycle.d2h`` (the wait and the copy)
+    and ``cycle.demux``, each live from the end of the stage before
+    (:meth:`lap`, ``match_batch``'s stage hook).  ``gpu.match`` and
+    ``gpu.topk`` are those launches' device time by CUDA events, read after
+    the copy back has waited and anchored at their enqueue; on the CPU, the
+    host time of the calls."""
+
+    NEXT = {"assemble": "h2d", "h2d": "match", "match": "topk", "topk": "d2h", "d2h": "demux"}
+
+    def __init__(self, tracer, parent, t_first: float, t_drain: float, device):
+        self.tracer = tracer
+        self.batch = tracer.child(parent, "gateway.batch")
+        self.batch.t0 = t_first
+        tracer.add_span(self.batch, "cycle.collect", t_first, t_drain)
+        self.stage = tracer.live(self.batch, "cycle.assemble")
+        self.stage.t0 = t_drain
+        self.stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
+        self.marks: dict = {}
+
+    def lap(self, stage: str) -> None:
+        t = time.perf_counter()
+        ev = None
+        if self.stream is not None and stage in ("h2d", "match", "topk"):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(self.stream)
+        self.marks[stage] = (t, ev)
+        done = self.stage
+        done.end()
+        self.stage = self.tracer.live(self.batch, "cycle." + self.NEXT[stage])
+        self.stage.t0 = done.t1   # the stages tile the cycle: the tracer's own work goes to the next
+        if stage == "d2h":
+            for name, a, z in (("gpu.match", "h2d", "match"), ("gpu.topk", "match", "topk")):
+                (t0, e0), (t1, e1) = self.marks[a], self.marks[z]
+                dur = e0.elapsed_time(e1) / 1e3 if e0 is not None else t1 - t0
+                self.tracer.add_span(self.batch, name, t0, t0 + dur)
+
+    def end(self, **attrs) -> None:
+        self.stage.end()
+        self.batch.end(**attrs)
+        self.batch.t1 = self.stage.t1   # with its last stage, not after that stage's wait for the tracer's lock

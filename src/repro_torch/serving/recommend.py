@@ -113,21 +113,32 @@ def match_batch(step, blk: np.ndarray, rb: Rulebook, *, top_k: int, exclude_bask
     block over ``data_axes``, ``step`` (:func:`make_match_step` on the mesh)
     matches it against its rule block and sums the rule blocks, it takes
     the top-k of its rows, and one all-gather over the data axes hands
-    every rank the whole batch's.  ``lap(name)``, if given, is called after
-    the top-k ("topk") and after that gather ("gather").  ``faults`` (a
-    ``mapreduce.StepFaults`` of :func:`batch_gathers`) rides both
-    all-gathers: the caller reads ``faults.ranks`` after."""
+    every rank the whole batch's.  ``lap(name)``, if given, is called at
+    each stage's end: on one card after the copy to the device ("h2d"),
+    the match's launch ("match"), the top-k ("topk") and the copy back
+    ("d2h"); on a mesh after the top-k ("topk") and after that gather
+    ("gather").  ``faults`` (a ``mapreduce.StepFaults`` of
+    :func:`batch_gathers`) rides both all-gathers: the caller reads
+    ``faults.ranks`` after."""
+    one = lap if mesh is None else None   # the stages only one card laps
     if mesh is not None:
         blk = shard_rows(blk, mesh, data_axes)
     blk_dev = _to_device(blk, rb.device)
+    if one is not None:
+        one("h2d")
     cols = (rb.ante_packed, rb.ante_len, rb.cons_packed, rb.scores)
     item_scores = step(blk_dev, *cols) if faults is None else step(blk_dev, *cols, faults=faults)
+    if one is not None:
+        one("match")
     idx, vals = _topk_items(item_scores, blk_dev, top_k=top_k, exclude_basket=exclude_basket,
                             num_items=rb.num_items)
     if lap is not None:
         lap("topk")
     if mesh is None:
-        return _to_host(idx, vals, blk.shape[0])
+        out = _to_host(idx, vals, blk.shape[0])
+        if lap is not None:
+            lap("d2h")
+        return out
     # ids and the float bits of the scores travel as one int32 block
     both = gather_blocks(torch.cat([idx, vals.view(torch.int32)], dim=1).cpu(), mesh, data_axes, faults)
     if lap is not None:

@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.core import rules as rules_mod
 from repro_torch.launch.mesh import mesh_device
+from repro_torch.obs.mining import phase
 
 SCORE_KINDS = ("confidence", "lift")
 
@@ -149,48 +150,60 @@ def compile_rulebook(
     max_rules: int | None = None,
     num_items: int | None = None,
     pad_multiple: int = 256,
+    obs=None,
 ) -> Rulebook:
     """Vectorized extraction (``core.rules.extract_rule_arrays``) -> sorted,
-    truncated, padded serving columns (a host rulebook)."""
+    truncated, padded serving columns (a host rulebook).
+
+    ``obs`` (optional mining observer) times the ``rules_extract``,
+    ``rules_sort`` and ``rules_pad`` phases; observation only."""
     if score not in SCORE_KINDS:
         raise ValueError(f"score must be one of {SCORE_KINDS}, got {score!r}")
-    arr = rules_mod.extract_rule_arrays(result, min_confidence, num_items)
-    scores = np.asarray(arr.confidence if score == "confidence" else arr.lift, np.float32)
+    with phase(obs, "rules_extract"):
+        arr = rules_mod.extract_rule_arrays(result, min_confidence, num_items)
+    with phase(obs, "rules_sort"):
+        scores = np.asarray(arr.confidence if score == "confidence" else arr.lift, np.float32)
+        # descending score, bitset tie-break (np.lexsort: last key is primary)
+        keys = (
+            [arr.cons_packed[:, w] for w in range(arr.cons_packed.shape[1] - 1, -1, -1)]
+            + [arr.ante_packed[:, w] for w in range(arr.ante_packed.shape[1] - 1, -1, -1)]
+            + [-scores.astype(np.float64)]
+        )
+        order = np.lexsort(keys)
+        if max_rules is not None:
+            order = order[:max_rules]
 
-    # descending score, bitset tie-break (np.lexsort: last key is primary)
-    keys = (
-        [arr.cons_packed[:, w] for w in range(arr.cons_packed.shape[1] - 1, -1, -1)]
-        + [arr.ante_packed[:, w] for w in range(arr.ante_packed.shape[1] - 1, -1, -1)]
-        + [-scores.astype(np.float64)]
-    )
-    order = np.lexsort(keys)
-    if max_rules is not None:
-        order = order[:max_rules]
-
-    r = order.size
-    rp = max(pad_multiple, ((r + pad_multiple - 1) // pad_multiple) * pad_multiple)
-    w = arr.ante_packed.shape[1]
-    ante = np.zeros((rp, w), np.uint32)
-    cons = np.zeros((rp, w), np.uint32)
-    lens = np.full(rp, -1, np.int32)
-    sc = np.zeros(rp, np.float32)
-    ante[:r] = arr.ante_packed[order]
-    cons[:r] = arr.cons_packed[order]
-    lens[:r] = arr.ante_len[order]
-    sc[:r] = scores[order]
+    with phase(obs, "rules_pad"):
+        r = order.size
+        rp = max(pad_multiple, ((r + pad_multiple - 1) // pad_multiple) * pad_multiple)
+        w = arr.ante_packed.shape[1]
+        ante = np.zeros((rp, w), np.uint32)
+        cons = np.zeros((rp, w), np.uint32)
+        lens = np.full(rp, -1, np.int32)
+        sc = np.zeros(rp, np.float32)
+        ante[:r] = arr.ante_packed[order]
+        cons[:r] = arr.cons_packed[order]
+        lens[:r] = arr.ante_len[order]
+        sc[:r] = scores[order]
     return Rulebook(ante, cons, lens, sc, arr.num_items, score, min_confidence)
 
 
-def place_rulebook(rb: Rulebook, device="cuda", *, mesh=None, rule_axis: str = "model") -> Rulebook:
+def place_rulebook(rb: Rulebook, device="cuda", *, mesh=None, rule_axis: str = "model",
+                   obs=None) -> Rulebook:
     """Commit the rulebook's columns to ``device`` once: words as (R, W)
     int32 views, lengths int32, scores float32.
 
     On a ``mesh`` (on its device) the rows are padded with inert rows
     (``len = -1``, score 0) to a multiple of the ``rule_axis`` shard count,
     and this rank keeps its contiguous block of them — the serving twin of
-    ``apriori.place_db``.
+    ``apriori.place_db``.  ``obs`` (optional mining observer) times it as
+    the ``rulebook_place`` phase.
     """
-    dev = mesh_device(device, mesh)
+    with phase(obs, "rulebook_place"):
+        return _place(rb, mesh_device(device, mesh), mesh, rule_axis)
+
+
+def _place(rb: Rulebook, dev, mesh, rule_axis: str) -> Rulebook:
     h = rb.to_host()
     ante, cons, lens, sc = h.ante_packed.view(np.int32), h.cons_packed.view(np.int32), h.ante_len, h.scores
     shard = None

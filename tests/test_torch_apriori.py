@@ -93,3 +93,60 @@ def test_count_impl_ref_is_explicit_and_equal(small_db):
     t_dev = tapr.place_db(small_db, tapr.AprioriConfig(**base), device="cpu")
     assert t_dev.dtype == torch.int32 and t_dev.shape == (small_db.shape[0], 1)
     assert np.array_equal(t_dev.numpy().view(np.uint32), japr.enc.pack_bits(small_db))
+
+
+# ------------------------------------------------------------ observation --
+def _observed(db, **kw):
+    from repro_torch.obs import MiningObs, Tracer
+
+    obs = MiningObs(tracer=Tracer(sample_rate=1.0))
+    res = tapr.mine(db, tapr.AprioriConfig(**kw), device="cpu", obs=obs)
+    obs.finish()
+    return res, obs
+
+
+@pytest.mark.parametrize("rep", ["dense", "packed"])
+@pytest.mark.parametrize("per_pass", [1 << 16, 64])
+def test_mine_with_obs_gives_the_same_itemsets(quest_db, rep, per_pass):
+    kw = dict(min_support=0.03, max_k=4, representation=rep, max_candidates_per_pass=per_pass)
+    res, obs = _observed(quest_db, **kw)
+    plain = tapr.mine(quest_db, tapr.AprioriConfig(**kw), device="cpu")
+    assert res.as_dict() == plain.as_dict() and max(res.levels) >= 3
+    counters = obs.counters()
+    for k, (sets, _) in res.levels.items():
+        assert counters[f'mine_frequent{{level="{k}"}}'] == sets.shape[0]
+    for p in ("candidate_gen", "cand_place", "count_kernel", "host_sync"):
+        assert counters[f'mine_phase_seconds{{phase="{p}"}}'] > 0.0, p
+
+
+def test_candidate_join_and_prune_lie_within_candidate_gen(quest_db):
+    """The join and the prune are timed inside candidate generation: their
+    seconds sum to at most its seconds, and each of their spans lies inside
+    a ``mine.candidate_gen`` span of the same level."""
+    _, obs = _observed(quest_db, min_support=0.03, max_k=4)
+    c = obs.counters()
+    sec = {p: c[f'mine_phase_seconds{{phase="{p}"}}'] for p in ("candidate_gen", "candidate_join", "candidate_prune")}
+    assert 0.0 < sec["candidate_join"] + sec["candidate_prune"] <= sec["candidate_gen"]
+    spans = obs.tracer.spans()
+    gens = [s for s in spans if s.name == "mine.candidate_gen"]
+    inner = [s for s in spans if s.name in ("mine.candidate_join", "mine.candidate_prune")]
+    assert inner and {s.name for s in inner} == {"mine.candidate_join", "mine.candidate_prune"}
+    for s in inner:
+        assert any(g.parent_id == s.parent_id and g.t0 <= s.t0 <= s.t1 <= g.t1 for g in gens), s.name
+
+
+def test_joined_candidates_are_at_least_the_pruned_ones(quest_db):
+    """``mine_candidates_joined{level}`` counts the join's rows before the
+    prune: at least ``mine_candidates{level}``, and exactly the join of the
+    level below's frequent itemsets."""
+    from repro_torch.core import candidates as cand
+
+    res, obs = _observed(quest_db, min_support=0.03, max_k=4)
+    c = obs.counters()
+    levels = sorted(int(k.split('"')[1]) for k in c if k.startswith("mine_candidates{"))
+    assert levels[0] == 1 and len(levels) >= 3
+    for k in levels[1:]:
+        joined = c[f'mine_candidates_joined{{level="{k}"}}']
+        assert joined >= c[f'mine_candidates{{level="{k}"}}']
+        assert joined == cand._join(res.levels[k - 1][0]).shape[0]
+    assert 'mine_candidates_joined{level="1"}' not in c

@@ -13,6 +13,7 @@ of a tie.
 """
 
 import functools
+import json
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -546,3 +547,88 @@ def test_stats_keys_match_jax_gateway(rulebooks, small_db):
         assert sorted(ts) == sorted(js)
         assert sorted(ts["cache"]) == sorted(js["cache"])
         assert sorted(tgw.metrics.registry.snapshot()) == sorted(jgw.metrics.registry.snapshot())
+
+
+# ------------------------------------------------------------ cycle trace --
+CYCLE = ("cycle.collect", "cycle.assemble", "cycle.h2d", "cycle.match", "cycle.topk", "cycle.d2h",
+         "cycle.demux")
+
+
+def test_traced_batches_get_one_cycle_span_each(rulebooks, baskets):
+    """Every batch holding a sampled request gets exactly one
+    ``gateway.batch`` span, under a sampled request's span; its ``cycle.*``
+    stages and ``gpu.*`` spans nest inside it, and the stages tile it in
+    order, each starting where the one before ended.  The per-request
+    spans are as before."""
+    from repro_torch.obs import Tracer
+
+    rb0, _ = rulebooks
+    tracer = Tracer(sample_rate=1.0)
+    with Gateway(rb0, max_batch=8, max_wait_ms=2.0, cache_capacity=0, tracer=tracer) as gw:
+        with ThreadPoolExecutor(8) as pool:
+            futs = list(pool.map(lambda b: gw.submit(b), baskets * 2))
+        for f, b in zip(futs, baskets * 2):
+            check_response(f.result(timeout=30), rb0, b, gw.default_top_k)
+        batches = gw.metrics.snapshot()["batches"]
+    spans = tracer.spans()
+    by_id = {s.span_id: s for s in spans}
+    cycles = [s for s in spans if s.name == "gateway.batch"]
+    assert len(cycles) == batches > 1
+    assert sum(c.attrs["batch"] for c in cycles) == len(baskets) * 2
+    for c in cycles:
+        assert by_id[c.parent_id].name == "gateway.request"
+        kids = sorted((s for s in spans if s.parent_id == c.span_id), key=lambda s: s.t0)
+        assert sorted(s.name for s in kids) == sorted(CYCLE + ("gpu.match", "gpu.topk"))
+        for s in kids:
+            assert c.t0 <= s.t0 <= s.t1 <= c.t1, s.name
+        stages = [s for s in kids if s.name.startswith("cycle.")]
+        assert [s.name for s in stages] == list(CYCLE)
+        for a, z in zip(stages, stages[1:]):
+            assert a.t1 == z.t0   # they tile the cycle
+        assert stages[0].t0 == c.t0 and stages[-1].t1 == c.t1
+    per_request = {s.name for s in spans if s.parent_id is not None and by_id[s.parent_id].name == "gateway.request"}
+    assert {"cache.probe", "queue.wait", "batch.assemble", "device.dispatch"} <= per_request
+    assert all(set(s.attrs) == {"top_k", "outcome", "generation", "bucket"}
+               for s in spans if s.name == "gateway.request")
+
+
+def test_unsampled_batches_and_no_tracer_record_no_cycle(rulebooks, baskets, monkeypatch):
+    """A batch with no sampled request, or a gateway with no tracer, never
+    builds a cycle trace and hands ``match_batch`` no stage hook."""
+    from repro_torch.obs import Tracer
+    from repro_torch.serving import gateway as gmod
+
+    rb0, _ = rulebooks
+    laps = []
+    real = gmod.match_batch
+    monkeypatch.setattr(gmod, "match_batch", lambda *a, **kw: (laps.append(kw.get("lap")), real(*a, **kw))[1])
+    tracer = Tracer(sample_rate=0.0)
+    for tr in (None, tracer):
+        with Gateway(rb0, max_batch=8, max_wait_ms=0.0, cache_capacity=0, tracer=tr, warmup=False) as gw:
+            monkeypatch.setattr(gmod, "_CycleTrace", None)   # building one would raise
+            for f, b in [(gw.submit(b), b) for b in baskets[:16]]:
+                check_response(f.result(timeout=30), rb0, b, gw.default_top_k)
+    assert laps and all(lap is None for lap in laps)
+    assert tracer.spans() == []
+
+
+def test_cycle_stages_are_profiler_ranges_of_the_dispatch_thread(rulebooks, baskets, tmp_path):
+    """A profiler that records every thread (``profile_all_threads``)
+    carries the live ``cycle.*`` stages of the gateway's dispatch thread,
+    started before it, as ranges of their names; the back-dated
+    ``cycle.collect`` is not one."""
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import Tracer
+
+    rb0, _ = rulebooks
+    with Gateway(rb0, max_batch=8, max_wait_ms=2.0, cache_capacity=0, tracer=Tracer(sample_rate=1.0)) as gw:
+        with profile(activities=[ProfilerActivity.CPU],
+                     experimental_config=_ExperimentalConfig(profile_all_threads=True)) as prof:
+            for f, b in [(gw.submit(b), b) for b in baskets[:16]]:
+                check_response(f.result(timeout=30), rb0, b, gw.default_top_k)
+    prof.export_chrome_trace(str(tmp_path / "prof.json"))
+    events = json.loads((tmp_path / "prof.json").read_text())["traceEvents"]
+    marks = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert set(CYCLE[1:]) <= marks and "cycle.collect" not in marks
