@@ -258,6 +258,12 @@ class MiningObs:
         """Rows out of level ``level``'s join, before the prune."""
         self.registry.counter("mine_candidates_joined", {"level": str(level)}).inc(joined)
 
+    def on_prune_rows(self, level: int, rows: int, path: str) -> None:
+        """Rows entering level ``level``'s prune with subsets to check, by the
+        path that checked them: ``"keyed"`` (packed int64 keys) or ``"rows"``
+        (structured row views)."""
+        self.registry.counter("mine_prune_rows", {"level": str(level), "path": path}).inc(rows)
+
     def on_chunk(self, rows: int) -> None:
         self.registry.counter("mine_chunks_streamed").inc()
         self.registry.counter("mine_rows_streamed").inc(rows)

@@ -9,7 +9,8 @@ in-memory route and the compile included, which the benchmark's jobs
 driver leaves unobserved), and prints one JSON line a run: the line's
 per-layer metrics, the same layers read from the program's phases and
 spans, the share of each level's joined candidates the prune keeps, the
-device's longest idle gaps, and on a serving cell the checks of the
+rows each level's prune checked by its path, the device's longest idle
+gaps, and on a serving cell the checks of the
 ``gateway.batch`` spans against the profiler (K2's kernel seconds, the
 share of each batch its ``cycle.*`` stages cover, the mean cycle against
 the window over its batches).
@@ -132,6 +133,7 @@ def _mine_readings(line) -> dict:
         joined = c[f'mine_candidates_joined{{level="{k}"}}']
         kept = c.get(f'mine_candidates{{level="{k}"}}', 0)
         keep[k] = [int(joined), int(kept), round(100.0 * kept / joined, 3) if joined else None]
+    prune_rows = {x.split("{")[1][:-1]: int(v) for x, v in c.items() if x.startswith("mine_prune_rows{")}
     kernels = ctx.profiler.summary()["kernel_s"]
     return dict(jobs=len(walls), job_wall_s=wall / len(walls),
                 phase_share={p: 100.0 * s / wall for p, s in sec.items()},
@@ -142,7 +144,7 @@ def _mine_readings(line) -> dict:
                 compile_obs_s=sum(sec[p] for p in COMPILE) / len(walls),
                 count_kernel_s=sec["count_kernel"], count_kernels_profiler_s=sum(kernels.values()),
                 k3_profiler_s=kernels.get("support_count_kernel", 0.0),
-                joined_kept_keep_pct=keep)
+                joined_kept_keep_pct=keep, prune_rows=prune_rows)
 
 
 def _serve_readings(line) -> dict:
