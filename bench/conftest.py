@@ -1,3 +1,5 @@
+import shutil
+
 import pytest
 
 
@@ -15,3 +17,16 @@ def _few_threads():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture
+def bench_copy(tmp_path, monkeypatch):
+    """The data files of the benchmark in a directory of their own, which
+    the harness then reads instead of ``bench/``."""
+    from bench import harness
+
+    copy = tmp_path / "bench"
+    for kind in ("workloads", "configs", "traffic", "metrics", "drivers"):
+        shutil.copytree(harness.BENCH / kind, copy / kind, ignore=shutil.ignore_patterns("__pycache__"))
+    monkeypatch.setattr(harness, "BENCH", copy)
+    return copy

@@ -17,6 +17,11 @@ three functions:
   limit)`` for each number compared; the run is correct when every value is
   at most its limit.
 
+A driver whose window runs on spawned ranks returns, besides, ``devices``:
+each rank's ``bench/ranks.py`` record, in rank order.  The line's device
+report and, in a traced run, the profile are then the ranks' merged
+(``ranks.merge``); without it they are this process's own, on one card.
+
 The harness reads ``BENCHMARK.json`` for which metrics a cell reports; a
 cell it does not list (a dry run) reports every metric it has.
 """
@@ -37,9 +42,11 @@ import tempfile
 import time
 from pathlib import Path
 
+from bench import ranks
+from bench.ranks import forbidden_modules
+
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 
 
 class MissingPiece(LookupError):
@@ -171,12 +178,14 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, device: str =
         checks = driver.check(state, result, ctx)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    merged = ranks.merge(result["devices"], trace) if "devices" in result else None
     correct = all(v <= lim for _, v, lim in checks)
     e2e, per_layer = metric_plan(name)
     metrics = {}
     if trace:
         run = dict(result, cell=name, config=ctx.config, traffic=ctx.traffic, device=device,
-                   reference=result.get("reference", {}), profile=ctx.profiler.summary())
+                   reference=result.get("reference", {}),
+                   profile=merged["profile"] if merged else ctx.profiler.summary())
         run["peaks"] = _peaks(device)
         for m in per_layer:
             reader = load_reader(m["name"])
@@ -189,8 +198,11 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, device: str =
         for n in names:
             if n in have:
                 metrics[n] = dict(value=float(have[n][0]), unit=have[n][1])
-    dev = dict(platform="gpu" if cuda else "cpu", kind=torch.cuda.get_device_name(0) if cuda else "cpu",
-               count=1, memory_peak_bytes=int(peak))
+    if merged:
+        kind, count, peak = merged["kind"], merged["count"], merged["memory_peak_bytes"]
+    else:
+        kind, count = torch.cuda.get_device_name(0) if cuda else "cpu", 1
+    dev = dict(platform="gpu" if cuda else "cpu", kind=kind, count=count, memory_peak_bytes=int(peak))
     line = dict(correct=bool(correct), attempted=int(result["attempted"]), failed=int(result["failed"]),
                 metrics=metrics, device=dev)
     if trace:
@@ -199,6 +211,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, device: str =
         line["breakdown"] = dict(device_ops=prof["device_ops"], idle_gaps=prof["idle_gaps"])
     line["checks"] = {n: dict(value=v, limit=lim) for n, v, lim in checks}
     line["_detail"] = dict(setup_s=setup_s, **result.get("detail", {}))
+    if merged:
+        line["_detail"].update(ranks=merged["ranks"], forbidden=merged["forbidden"])
     return line
 
 
@@ -210,10 +224,6 @@ def _peaks(device: str) -> dict | None:
     from bench.peaks import part
 
     return part(torch.cuda.get_device_name(0))
-
-
-def forbidden_modules() -> list:
-    return sorted({m.split(".")[0] for m in list(sys.modules)} & set(FORBIDDEN))
 
 
 def main(argv, t0: float) -> int:
@@ -232,14 +242,18 @@ def main(argv, t0: float) -> int:
         return 2
     from bench.peaks import power_limit
 
-    card = power_limit()
     line = run_cell(args.workload, args.seed, args.seconds, bool(args.trace), device="cuda", t0=t0)
-    found = forbidden_modules()
+    detail = line.pop("_detail")
+    found = sorted(set(forbidden_modules()) | set(detail.get("forbidden", ())))
     if found:
         print(f"bench: the run loaded {', '.join(found)}", file=sys.stderr)
         return 3
-    detail = line.pop("_detail")
-    detail.update(card=card, workload=args.workload, seed=args.seed, trace=args.trace)
+    if line["device"]["count"] < int(cell["chips"]):
+        print(f"bench: the cell needs {cell['chips']} card(s), the run used {line['device']['count']}",
+              file=sys.stderr)
+        return 4
+    cards = sorted({r["index"] for r in detail["ranks"]}) if "ranks" in detail else [torch.cuda.current_device()]
+    detail.update(card=power_limit(cards), workload=args.workload, seed=args.seed, trace=args.trace)
     out = BENCH / "out"
     out.mkdir(exist_ok=True)
     with open(out / f"{args.workload}.{args.seed}.{args.trace}.json", "w") as f:

@@ -32,12 +32,17 @@ def part(name: str) -> dict | None:
     return PARTS["sxm"]
 
 
-def power_limit() -> str:
-    """``name, power.limit`` of the first card as ``nvidia-smi`` reads it,
-    or ``not read``."""
+def power_limit(cards) -> list:
+    """``name, power.limit`` of each card of ``cards`` (CUDA indices, which
+    are ``nvidia-smi``'s where ``CUDA_VISIBLE_DEVICES`` is unset) as
+    ``nvidia-smi`` reads it, or ``not read``."""
     try:
-        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        out = subprocess.run(["nvidia-smi", "--query-gpu=index,name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True, timeout=30, check=True)
     except (OSError, subprocess.SubprocessError):
-        return "not read"
-    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else "not read"
+        return ["not read" for _ in cards]
+    read = {}
+    for row in out.stdout.strip().splitlines():
+        index, _, rest = row.partition(",")
+        read[index.strip()] = rest.strip()
+    return [read.get(str(int(c)), "not read") for c in cards]

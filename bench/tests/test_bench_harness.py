@@ -5,7 +5,6 @@ runs, and nothing the benchmark loads is JAX or the JAX package."""
 import ast
 import json
 import os
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -36,17 +35,6 @@ def test_every_entry_of_benchmark_json_is_found_by_name():
     assert {"setup_s", "rulebook_s", "serve_qps"} == e2e
     for m in SPEC["per_layer"]:
         assert m["moves"] in e2e and set(m["workloads"]) <= {w["name"] for w in SPEC["workloads"]}
-
-
-@pytest.fixture
-def bench_copy(tmp_path, monkeypatch):
-    """The data files of the benchmark in a directory of their own, which
-    the harness then reads instead of ``bench/``."""
-    copy = tmp_path / "bench"
-    for kind in ("workloads", "configs", "traffic", "metrics", "drivers"):
-        shutil.copytree(harness.BENCH / kind, copy / kind, ignore=shutil.ignore_patterns("__pycache__"))
-    monkeypatch.setattr(harness, "BENCH", copy)
-    return copy
 
 
 def test_a_missing_piece_is_named(bench_copy):
@@ -81,10 +69,19 @@ def test_a_cell_added_as_files_alone_runs_its_dry_path(bench_copy):
                             overrides=tiny.OVERRIDES, log=lambda m: None)
     assert line["correct"] and line["attempted"] >= 1 and line["failed"] == 0
     assert set(line["metrics"]) == {"setup_s", "rulebook_s"}
+    # a driver that hands back no ranks' records: one card, this process's peak
+    assert list(line) == ["correct", "attempted", "failed", "metrics", "device", "checks", "_detail"]
+    assert line["device"] == dict(platform="cpu", kind="cpu", count=1, memory_peak_bytes=0)
+    assert not {"ranks", "forbidden"} & set(line["_detail"])
     traced = harness.run_cell("quest-t10i4d100k.mine_int8", 5, 0.4, True, device="cpu",
                               overrides=tiny.OVERRIDES, log=lambda m: None)
     assert traced["correct"] and traced["metrics"]["jobs_done.mine_int8"]["value"] >= 1
     assert "candgen_share.mine" in traced["metrics"] and list(traced)[-2:] == ["checks", "_detail"]
+    assert list(traced) == ["correct", "attempted", "failed", "metrics", "device", "breakdown", "checks", "_detail"]
+    assert list(traced["device"]) == ["platform", "kind", "count", "memory_peak_bytes", "busy_s", "window_s"]
+    assert traced["device"]["count"] == 1 and traced["device"]["memory_peak_bytes"] == 0
+    assert traced["device"]["window_s"] > 0 and set(traced["breakdown"]) == {"device_ops", "idle_gaps"}
+    assert not any(name.startswith("rank ") for name, _ in traced["breakdown"]["idle_gaps"])
 
 
 def _imports(path: Path) -> set:
