@@ -30,11 +30,19 @@ with ``out_specs=P(model_axis)`` does.  The level loop then assembles the
 candidate blocks over the model axis, outside the step
 (``mapreduce.gather_blocks``).  On a mesh of one rank every collective is
 skipped.
+
+By default every rank is handed the whole DB and places its own row block
+of it.  With ``split=True`` each rank is handed only its own split, as a
+node of the paper's cluster holds only its HDFS blocks: the ranks exchange
+their splits' row counts over the host group (:func:`split_layout`), which
+gives N for ``min_count``, and each rank pads its split with inert zero rows
+to the largest split's, so no process ever holds another rank's rows.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib
 import math
 from typing import Callable
@@ -180,33 +188,62 @@ def assemble_counts(block: torch.Tensor, cfg: AprioriConfig, mesh=None) -> np.nd
     return block.numpy()
 
 
-def place_db(t_np: np.ndarray, cfg: AprioriConfig, device="cuda", *, mesh=None) -> torch.Tensor:
+def split_layout(rows: int, num_items: int, cfg: AprioriConfig, mesh) -> tuple[int, int]:
+    """``(N, R)`` of a DB handed to the ranks of ``mesh`` in splits, this
+    rank's of ``rows`` rows: N sums the splits' rows over the data shards and
+    R is the largest split's, the rows every rank places.  Ranks of one data
+    shard (along the other axes) hold the same split; a shard whose ranks
+    disagree on its rows, or ranks that disagree on the items, raise
+    ``ValueError`` on every rank.  A collective call (one exchange over the
+    host group)."""
+    _check_mesh(cfg, mesh)
+    index, _ = mesh.shard(cfg.data_axes)
+    seen = mesh.all_gather_object((index, int(rows), int(num_items)))
+    by_shard: dict = {}
+    for shard, r, items in seen:
+        if items != num_items or by_shard.setdefault(shard, r) != r:
+            raise ValueError(f"the ranks' splits do not make one DB: (data shard, rows, items) {seen}")
+    return sum(by_shard.values()), max(by_shard.values())
+
+
+def place_db(t_np: np.ndarray, cfg: AprioriConfig, device="cuda", *, mesh=None, split: bool = False,
+             obs=None) -> torch.Tensor:
     """Encode the dense {0,1} DB and place it on ``device`` ONCE for the
     whole mine: one int8 copy to the device, then the encoding there.
     On a mesh, only this rank's row block (rows zero-padded to the data-shard
-    count: inert) is copied, to the mesh's device.
+    count: inert) is copied, to the mesh's device.  With ``split=True``
+    ``t_np`` is this rank's own split (:func:`split_layout`), copied whole and
+    zero-padded on the device to the largest split's rows.
 
     Dense: (N, k3.item_width(I)) in the operand dtype — the zero-column pad
     and the cast (the JAX wrapper casts and pads the whole DB on every pass
     instead).
     Packed: (N, W) int32 views of the uint32 bitset words, packed by
     ``ops.pack_bits_device`` and handed to :func:`place_words`.
+    ``obs`` times the copy, pad and encoding as phase ``db_place``.
     """
     dev = mesh_device(device, mesh)
     _check_cfg(cfg)
     t_np = np.asarray(t_np, dtype=np.int8)
-    num_items = t_np.shape[1]
-    if mesh is not None:
+    rows, num_items = t_np.shape
+    if split:
+        if mesh is None:
+            raise ValueError("split=True needs a mesh: on one device the DB is whole")
+        rows = split_layout(rows, num_items, cfg, mesh)[1]
+    elif mesh is not None:
         _check_mesh(cfg, mesh)
         index, shards = mesh.shard(cfg.data_axes)
         t_np, _ = pad_rows_to_shards(t_np, shards)
         rows = t_np.shape[0] // shards
-        t_np = np.ascontiguousarray(t_np[index * rows : (index + 1) * rows])
-    t = torch.from_numpy(t_np).to(dev)
-    if cfg.representation == "packed":
-        return place_words(kops.pack_bits_device(t), num_items, cfg)
-    t = torch.nn.functional.pad(t, (0, k3.item_width(num_items) - num_items))
-    return t.to(k3.DTYPES[cfg.operand_dtype][1])
+        t_np = t_np[index * rows : (index + 1) * rows]
+    with phase(obs, "db_place"):   # one int8 copy, then zero rows past t_np's (inert) on the device
+        t = torch.from_numpy(np.ascontiguousarray(t_np)).to(dev)
+        if cfg.representation == "packed":
+            t = torch.nn.functional.pad(t, (0, 0, 0, rows - t.shape[0]))
+            return place_words(kops.pack_bits_device(t), num_items, cfg)
+        out = torch.zeros((rows, k3.item_width(num_items)), dtype=k3.DTYPES[cfg.operand_dtype][1], device=dev)
+        out[: t.shape[0], :num_items] = t
+        return out
 
 
 def place_words(words: torch.Tensor, num_items: int, cfg: AprioriConfig) -> torch.Tensor:
@@ -279,13 +316,17 @@ def _count_level(count_step, t_dev, cand_sets: np.ndarray, num_items: int, cfg: 
 
     ``obs`` times the ``cand_place``, ``count_kernel`` (the device span of
     a pass's count launch by CUDA events, read after the drain's sync) and
-    ``host_sync`` phases; observation only.
+    ``host_sync`` phases, and on a mesh whose data axes hold more than one
+    rank ``count_reduce`` (the span of the pass's all-reduce, after the
+    count launch) and the bytes it reduced; observation only.
     """
     k_total = cand_sets.shape[0]
     quantum = _candidate_quantum(cfg, mesh)
     counts = np.zeros(k_total, dtype=np.int64)
     pending = []
-    timer = device_timer(obs, "count_kernel", t_dev.device)
+    reduces = mesh is not None and mesh.group_size(cfg.data_axes) > 1
+    timer = device_timer(obs, "count_kernel", t_dev.device, lap="count_reduce" if reduces else None)
+    step = functools.partial(count_step, on_map=timer.lap) if reduces and obs is not None else count_step
 
     def _drain(limit):
         while len(pending) > limit:
@@ -300,7 +341,9 @@ def _count_level(count_step, t_dev, cand_sets: np.ndarray, num_items: int, cfg: 
         with phase(obs, "cand_place"):
             c_dev, len_dev = _place_candidates(chunk, kp, num_items, cfg, t_dev.device, mesh)
         with timer:
-            out = count_step(t_dev, c_dev, len_dev)
+            out = step(t_dev, c_dev, len_dev)
+        if reduces and obs is not None:
+            obs.on_reduce_bytes(cand_sets.shape[1], out.numel() * out.element_size())
         pending.append((start, chunk.shape[0], out))
         _drain(limit=1)   # sync pass p only once pass p+1 is in flight
     _drain(limit=0)
@@ -382,6 +425,7 @@ def mine(
     *,
     device="cuda",
     mesh=None,
+    split: bool = False,
     checkpoint_cb: Callable | None = None,
     resume_state: dict | None = None,
     obs=None,
@@ -391,18 +435,30 @@ def mine(
     ``mesh`` (``launch.mesh.Mesh``): run as this rank of a data x model
     mesh, on the mesh's device; every rank returns the same result, equal
     to the single-device mine's.
+    ``split`` (a mesh only): ``transactions_dense`` is this rank's own split
+    of the DB's rows, not the whole DB; every rank returns the result of
+    the single-device mine of the splits concatenated in data-shard order.
     checkpoint_cb(level_k, levels_dict): called after each completed level;
     ``resume_state`` = {'levels': ..., 'next_k': ...} restarts from one.
     ``obs`` (optional mining observer, ``obs.MiningObs``): per-level
-    counters and phase times, as ``streaming.mine_streamed`` records them;
-    observation only.
+    counters and phase times, as ``streaming.mine_streamed`` records them,
+    and the rows this rank counts (``mine_split_rows``); observation only.
     """
     dev = mesh_device(device, mesh)
     _check_cfg(cfg)
     t_np = np.asarray(transactions_dense, dtype=np.int8)
     n, num_items = t_np.shape
 
-    t_dev = place_db(t_np, cfg, dev, mesh=mesh)
+    t_dev = place_db(t_np, cfg, dev, mesh=mesh, split=split, obs=obs)
+    held = n
+    if split:
+        n = split_layout(held, num_items, cfg, mesh)[0]
+    elif mesh is not None:   # this rank's block of the whole, its padding left out
+        index, shards = mesh.shard(cfg.data_axes)
+        block = -(-n // shards)
+        held = min(block, max(0, n - index * block))
+    if obs is not None:
+        obs.on_split_rows(held)
     count_step = make_count_step(cfg, mesh)
 
     def count_fn(cand_sets, level_k):

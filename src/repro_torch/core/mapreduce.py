@@ -194,23 +194,25 @@ class MapReduceJob:
 def mapreduce(job: MapReduceJob, mesh, *, on_map: Callable[[], Any] | None = None) -> Callable[..., Any]:
     """Run a :class:`MapReduceJob` on this rank of ``mesh``.
 
-    Returns ``fn(*shard_args, faults=None) -> reduced``: the map on this
-    rank's shards, then the reduce over ``job.reduce_axes``; every rank of
-    those axes gets the result.  An output the map splits over another axis
-    stays split: each rank gets its own block, reduced
-    (:func:`gather_blocks` makes it whole).  ``on_map()``, if given, runs
-    between the map and the reduce (a timer's lap).  ``faults`` (a
-    :class:`StepFaults`) rides the ``ordered_sum`` reduce's all-gather (an
-    all-reduce carries none).
+    Returns ``fn(*shard_args, faults=None, on_map=None) -> reduced``: the
+    map on this rank's shards, then the reduce over ``job.reduce_axes``;
+    every rank of those axes gets the result.  An output the map splits over
+    another axis stays split: each rank gets its own block, reduced
+    (:func:`gather_blocks` makes it whole).  ``on_map()``, given here or to
+    one call, runs between the map and the reduce (a timer's lap).
+    ``faults`` (a :class:`StepFaults`) rides the ``ordered_sum`` reduce's
+    all-gather (an all-reduce carries none).
     """
     if job.reduce_op not in _REDUCERS and job.reduce_op != "ordered_sum":
         raise ValueError(f"unknown reduce_op {job.reduce_op!r}")
     axes = tuple(job.reduce_axes)
+    step_lap = on_map
 
-    def fn(*args, faults=None):
+    def fn(*args, faults=None, on_map=None):
         partial = job.map_fn(*args)
-        if on_map is not None:
-            on_map()
+        for lap in (step_lap, on_map):
+            if lap is not None:
+                lap()
         if job.reduce_op == "ordered_sum":
             return _tree_map(lambda t: ordered_sum(t, mesh, axes, faults), partial)
         return all_reduce(partial, mesh, axes, job.reduce_op)

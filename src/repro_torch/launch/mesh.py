@@ -28,16 +28,16 @@ backend's default timeout.)
 
 Every collective of the engine (``core.mapreduce``) and of a
 :class:`Mesh`'s ``barrier``, ``all_gather_object`` and ``broadcast`` is
-waited for in slices of ``ABORT_POLL_S`` (:meth:`Mesh.wait`): between two
-slices it reads the mesh's abort key in the default group's store, so once
-any rank has called :meth:`Mesh.abort` every rank waiting in a collective
-of that mesh lets go with :class:`MeshAborted` instead of waiting out the
-groups' timeout (gloo releases no peer on its own: neither ``abort()`` nor
-destroying a group does).  An aborted mesh is done with: its groups may
-hold collectives no peer will join, so its ranks build another
-(:meth:`Mesh.twin`) and :meth:`Mesh.destroy` it.  Under NCCL a wait only
-orders the streams, so a rank held in an NCCL kernel is not released this
-way.
+waited for by :meth:`Mesh.wait`, which reads the mesh's abort key in the
+default group's store every ``ABORT_POLL_S``, so once any rank has called
+:meth:`Mesh.abort` every rank waiting in a collective of that mesh lets go
+with :class:`MeshAborted` instead of waiting out the groups' timeout (gloo
+releases no peer on its own: neither ``abort()`` nor destroying a group
+does).  A gloo collective is waited for in timed slices; an NCCL one by
+polling its completion from the host (:meth:`Mesh.wait` says why).  An
+aborted mesh is done with: its groups may hold collectives no peer will
+join, so its ranks build another (:meth:`Mesh.twin`) and
+:meth:`Mesh.destroy` it.
 
 Ranks compute on ``device``: ``"cpu"``, one card for all (``"cuda:0"``), or
 ``"cuda"``, which puts local rank ``r`` on card ``r % cards``.  The backend
@@ -81,6 +81,8 @@ EXIT_GRACE_S = 30.0   # how long ranks that all reported may take to exit
 SILENT_DEATH_GRACE_S = 1.0
 # how often a rank waiting in a collective looks at its mesh's abort key
 ABORT_POLL_S = 0.05
+# how often a rank waiting in an NCCL collective asks whether it has ended
+DEVICE_POLL_S = 2e-4
 
 
 def production_mesh_shape(*, multi_pod: bool = False) -> tuple[tuple, tuple]:
@@ -220,13 +222,48 @@ class Mesh(MeshLayout):
 
     def wait(self, work) -> None:
         """Wait for ``work``, a collective sent with ``async_op=True`` on one
-        of this mesh's groups, in slices of ``ABORT_POLL_S``; between two,
-        raise :class:`MeshAborted` if a rank has aborted the mesh.  The
+        of this mesh's groups; every ``ABORT_POLL_S`` raise
+        :class:`MeshAborted` if a rank has aborted the mesh.  The
         collective's own error (a lost peer, the groups' timeout) is
         raised as it comes.  ``work`` is None where the collective was only
-        recorded (``launch.op_analysis``)."""
+        recorded (``launch.op_analysis``).
+
+        Under gloo the work is waited for in timed slices.  Under NCCL it is
+        not: NCCL's ``wait(timeout)`` blocks the host and, when the
+        collective has not ended within the timeout (a peer still counting,
+        so any slice short enough to read the abort key), marks it failed
+        and aborts the communicator.  So the host polls the work's
+        completion (a query of its CUDA event, every ``DEVICE_POLL_S``) and
+        then calls ``wait()``, which orders this rank's stream after it.
+        The host is therefore held until the collective ends, as under
+        gloo, and a device collective is not left in flight behind the
+        host.  A peer that died is reported by NCCL's watchdog after the
+        groups' timeout.  A rank released by an abort leaves its collective
+        running on the card, waiting for the peers that never come: a
+        device-wide synchronize waits for it until :meth:`destroy` aborts
+        the mesh's communicators."""
         if work is None:
             return
+        if self.backend == "nccl":
+            self._wait_polled(work)
+        else:
+            self._wait_sliced(work)
+
+    def _check_abort(self) -> None:
+        if self.store.check(["abort"]):
+            raise MeshAborted(f"{self.store.get('abort').decode()} aborted the mesh")
+
+    def _wait_polled(self, work) -> None:
+        look = time.monotonic() + ABORT_POLL_S
+        while not work.is_completed():
+            if time.monotonic() >= look:
+                self._check_abort()
+                look = time.monotonic() + ABORT_POLL_S
+            time.sleep(DEVICE_POLL_S)
+        work.wait()
+
+    def _wait_sliced(self, work) -> None:
+        """Wait for a gloo collective in slices of ``ABORT_POLL_S``."""
         slice_ = datetime.timedelta(seconds=ABORT_POLL_S)
         while True:
             try:
@@ -236,8 +273,7 @@ class Mesh(MeshLayout):
                 if work.is_completed():   # it ended as the slice did: its own outcome, or error
                     work.wait()
                     return
-            if self.store.check(["abort"]):
-                raise MeshAborted(f"{self.store.get('abort').decode()} aborted the mesh")
+            self._check_abort()
 
     def abort(self, who: str) -> None:
         """Release every rank waiting, or about to wait, in a collective of
@@ -247,29 +283,35 @@ class Mesh(MeshLayout):
 
     def destroy(self) -> None:
         """Destroy this mesh's process groups (an aborted mesh's, once its
-        replacement is built).  A collective a peer never joined is left to
-        gloo's timeout; it holds no other group."""
+        replacement is built).  A gloo collective a peer never joined is
+        left to gloo's timeout; it holds no other group.  NCCL groups are
+        aborted (``ncclCommAbort``), which ends such a collective on the
+        card; destroying them would wait for it."""
         for group in {*self._groups.values(), self._host_group}:
-            dist.destroy_process_group(group)
+            if group is not self._host_group and self.backend == "nccl":
+                dist.distributed_c10d._abort_process_group(group)
+            else:
+                dist.destroy_process_group(group)
 
     def barrier(self) -> None:
-        self.wait(dist.barrier(group=self._host_group, async_op=True))
+        self._wait_sliced(dist.barrier(group=self._host_group, async_op=True))
 
     def all_gather_object(self, obj) -> list:
         """Every rank's ``obj``, in rank order, on every rank (pickled): the
         sizes, then the padded bytes, in two all-gathers."""
         data = torch.frombuffer(bytearray(pickle.dumps(obj)), dtype=torch.uint8)
         sizes = [torch.zeros(1, dtype=torch.int64) for _ in range(self.size)]
-        self.wait(dist.all_gather(sizes, torch.tensor([data.numel()]), group=self._host_group, async_op=True))
+        self._wait_sliced(dist.all_gather(sizes, torch.tensor([data.numel()]), group=self._host_group,
+                                          async_op=True))
         n = max(int(s) for s in sizes)
         blocks = [torch.empty(n, dtype=torch.uint8) for _ in range(self.size)]
         wire = torch.cat([data, torch.zeros(n - data.numel(), dtype=torch.uint8)])
-        self.wait(dist.all_gather(blocks, wire, group=self._host_group, async_op=True))
+        self._wait_sliced(dist.all_gather(blocks, wire, group=self._host_group, async_op=True))
         return [pickle.loads(b[: int(s)].numpy().tobytes()) for b, s in zip(blocks, sizes)]
 
     def broadcast(self, tensor: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank ``src``'s CPU ``tensor`` into every rank's, in place."""
-        self.wait(dist.broadcast(tensor, src, group=self._host_group, async_op=True))
+        self._wait_sliced(dist.broadcast(tensor, src, group=self._host_group, async_op=True))
         return tensor
 
     def broadcast_object(self, obj=None, src: int = 0):

@@ -19,6 +19,8 @@ Phase taxonomy (the per-phase wall-time split):
 - ``candidate_gen``   — host-side k-itemset join + prune from the (k-1) survivors
 - ``candidate_join``  — its join (inside ``candidate_gen``)
 - ``candidate_prune`` — its downward-closure prune (inside ``candidate_gen``)
+- ``db_place``        — ``apriori.place_db``: the rows' copy to the device,
+                        their zero-row pad and their encoding there
 - ``cand_place``      — a dense pass's candidate encode and copy to the device
 - ``prefetch_stall``  — time the fold blocked on the chunk iterator
 - ``count_kernel``    — on a card, the device span of the count launches by
@@ -27,6 +29,10 @@ Phase taxonomy (the per-phase wall-time split):
                         accumulate step with the device's waits for the host
                         between its launches (launch-bound there, so not
                         kernel time); host time on the CPU
+- ``count_reduce``    — on a mesh, the device span of a pass's all-reduce of
+                        its counts over the data axes by CUDA events, from the
+                        end of the count launch to the end of the reduce (the
+                        wait for slower peers included); host time on the CPU
 - ``host_sync``       — device→host sync of the counts (waits for the launches)
 - ``checkpoint_write``— mid-level cursor/accumulator saves
 - ``rules_extract``, ``rules_sort``, ``rules_pad`` — ``compile_rulebook``'s
@@ -53,7 +59,8 @@ from .trace import Span, Tracer, mirror, unmirror
 
 PHASES = ("candidate_gen", "prefetch_stall", "count_kernel", "host_sync",
           "checkpoint_write", "candidate_join", "candidate_prune", "cand_place",
-          "rules_extract", "rules_sort", "rules_pad", "rulebook_place")
+          "rules_extract", "rules_sort", "rules_pad", "rulebook_place",
+          "db_place", "count_reduce")
 
 _NULL = nullcontext()
 
@@ -90,33 +97,45 @@ class DeviceTimer:
     A block's span holds whatever the device waits for between its
     launches, the host's launches included, so it is kernel time only when
     the device is never starved inside the block.  On the CPU each block is
-    its host time, reported at once."""
+    its host time, reported at once.
 
-    def __init__(self, obs, name: str, device):
-        self.obs, self.name = obs, name
+    With ``lap``, a block that calls :meth:`lap` is two spans: ``name`` up
+    to the lap and phase ``lap`` from it to the block's end."""
+
+    def __init__(self, obs, name: str, device, lap: str | None = None):
+        self.obs, self.name, self.lap_name = obs, name, lap
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
         self._open: list = []
 
+    def _mark(self):
+        t = time.perf_counter()
+        if not self.cuda:
+            return t, None
+        e = torch.cuda.Event(enable_timing=True)
+        e.record(torch.cuda.current_stream(self.device))
+        return t, e
+
     def __enter__(self):
-        self._t0 = time.perf_counter()
-        if self.cuda:
-            self._e0 = torch.cuda.Event(enable_timing=True)
-            self._e0.record(torch.cuda.current_stream(self.device))
+        self._marks = [self._mark()]
         return self
 
+    def lap(self) -> None:
+        """End phase ``name``'s part of the block here; phase ``lap`` runs
+        from here to the block's end."""
+        if self.lap_name is not None:
+            self._marks.append(self._mark())
+
     def __exit__(self, *exc):
+        self._open.append(self._marks + [self._mark()])
         if not self.cuda:
-            self.obs.add_phase(self.name, self._t0, time.perf_counter())
-            return
-        e1 = torch.cuda.Event(enable_timing=True)
-        e1.record(torch.cuda.current_stream(self.device))
-        self._open.append((self._t0, self._e0, e1))
+            self.flush()
 
     def flush(self) -> None:
-        while self._open and self._open[0][2].query():
-            t0, e0, e1 = self._open.pop(0)
-            self.obs.add_phase(self.name, t0, t0 + e0.elapsed_time(e1) / 1e3)
+        while self._open and (not self.cuda or self._open[0][-1][1].query()):
+            marks = self._open.pop(0)
+            for name, (t0, e0), (t1, e1) in zip((self.name, self.lap_name), marks, marks[1:]):
+                self.obs.add_phase(name, t0, t0 + (e0.elapsed_time(e1) / 1e3 if self.cuda else t1 - t0))
 
 
 class _NullTimer:
@@ -126,6 +145,9 @@ class _NullTimer:
     def __exit__(self, *exc):
         pass
 
+    def lap(self) -> None:
+        pass
+
     def flush(self) -> None:
         pass
 
@@ -133,10 +155,10 @@ class _NullTimer:
 _NULL_TIMER = _NullTimer()
 
 
-def device_timer(obs, name: str, device):
-    """A :class:`DeviceTimer` of phase ``name``; one that does nothing for
-    ``obs=None``."""
-    return _NULL_TIMER if obs is None else DeviceTimer(obs, name, device)
+def device_timer(obs, name: str, device, lap: str | None = None):
+    """A :class:`DeviceTimer` of phase ``name`` (and ``lap``); one that does
+    nothing for ``obs=None``."""
+    return _NULL_TIMER if obs is None else DeviceTimer(obs, name, device, lap)
 
 
 class MiningProgress:
@@ -263,6 +285,16 @@ class MiningObs:
         path that checked them: ``"keyed"`` (packed int64 keys) or ``"rows"``
         (structured row views)."""
         self.registry.counter("mine_prune_rows", {"level": str(level), "path": path}).inc(rows)
+
+    def on_split_rows(self, rows: int) -> None:
+        """The transaction rows this rank places and counts (its own split
+        on a mesh, padding left out)."""
+        self.registry.counter("mine_split_rows").inc(rows)
+
+    def on_reduce_bytes(self, level: int, nbytes: int) -> None:
+        """Bytes of counts one pass of level ``level`` all-reduced over the
+        mesh's data axes."""
+        self.registry.counter("mine_reduce_bytes", {"level": str(level)}).inc(nbytes)
 
     def on_chunk(self, rows: int) -> None:
         self.registry.counter("mine_chunks_streamed").inc()

@@ -93,6 +93,87 @@ def mine_dicts(mesh, db, cfgs):
     return [mine(db, cfg, device="cpu", mesh=mesh).as_dict() for cfg in cfgs]
 
 
+def split_mines(mesh, paths, cfgs):
+    """``mine(split=True)`` of this rank's own split, the file of its data
+    shard and the only rows it loads, under each config, observed: each
+    result, the rows its file held and its observer's counters.  Then a
+    split the ranks of one data shard disagree on (a model rank one row
+    short, where the mesh has a model axis): what every rank raised."""
+    from repro_torch.obs import MiningObs
+
+    rows = np.load(paths[mesh.shard(("data",))[0]])
+    out = dict(rows=rows.shape[0], mines=[])
+    for cfg in cfgs:
+        obs = MiningObs()
+        res = mine(rows, cfg, device="cpu", mesh=mesh, split=True, obs=obs)
+        obs.finish()
+        out["mines"].append(dict(itemsets=res.as_dict(), n=res.num_transactions, min_count=res.min_count,
+                                 counters=obs.counters()))
+    if mesh.shape.get("model", 1) > 1:
+        short = rows[: rows.shape[0] - mesh.coord("model")]
+        try:
+            mine(short, cfgs[0], device="cpu", mesh=mesh, split=True)
+        except ValueError as e:
+            out["disagree"] = str(e)
+    return out
+
+
+def nccl_waits(mesh, late_s):
+    """On an NCCL mesh, one rank a card: an all-reduce the last rank enters
+    ``late_s`` late (waited for by ``Mesh.wait``); then an all-reduce the
+    last rank never enters and aborts instead; then a twin of the mesh,
+    the aborted mesh destroyed (in a thread, so a destroy that hangs is
+    reported), and an all-reduce on the twin.  Returns what each step
+    gave."""
+    from repro_torch.core.mapreduce import all_reduce
+    from repro_torch.launch.mesh import MeshAborted
+
+    last = mesh.rank == mesh.size - 1
+    x = torch.ones(4096, dtype=torch.int32, device=mesh.device)
+    if last:
+        time.sleep(late_s)
+    t = time.perf_counter()
+    late = int(all_reduce(x.clone(), mesh, ("data",))[0])
+    out = dict(late=late, late_wait_s=time.perf_counter() - t)
+    t = time.perf_counter()
+    if last:
+        time.sleep(0.2)
+        mesh.abort(f"rank {mesh.rank}")
+        out["aborted"] = "aborted it"
+    else:
+        try:
+            all_reduce(x.clone(), mesh, ("data",))
+            out["aborted"] = "not released"
+        except MeshAborted as e:
+            out["aborted"] = str(e)
+    out["abort_s"] = time.perf_counter() - t
+    twin = mesh.twin()
+    done = threading.Event()
+    threading.Thread(target=lambda: (mesh.destroy(), done.set()), daemon=True).start()
+    out["destroyed"] = done.wait(30.0)
+    out["twin"] = int(all_reduce(x.clone(), twin, ("data",))[0])
+    torch.cuda.synchronize(mesh.device)
+    return out
+
+
+def split_mines_on_cards(mesh, paths, cfgs):
+    """``mine(split=True)`` of this rank's split file on its card under each
+    config, observed: each result's itemsets and its phase seconds and
+    reduce bytes."""
+    from repro_torch.obs import MiningObs
+
+    rows = np.load(paths[mesh.shard(("data",))[0]])
+    out = []
+    for cfg in cfgs:
+        obs = MiningObs()
+        res = mine(rows, cfg, device="cuda", mesh=mesh, split=True, obs=obs)
+        c = obs.counters()
+        out.append(dict(itemsets=res.as_dict(), split_rows=c["mine_split_rows"],
+                        phases={k.split('"')[1]: v for k, v in c.items() if k.startswith("mine_phase_seconds{")},
+                        reduce_bytes=sum(v for k, v in c.items() if k.startswith("mine_reduce_bytes{"))))
+    return out
+
+
 def son_dicts(mesh, db, cfgs, num_partitions):
     return [mine_son(db, cfg, device="cpu", mesh=mesh, num_partitions=num_partitions).as_dict()
             for cfg in cfgs]
