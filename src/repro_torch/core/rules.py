@@ -7,18 +7,26 @@ Two implementations of the same contract:
   dataclasses.  O(Σ_k F_k · 2^k) Python-loop work; kept as the oracle.
 * :func:`extract_rule_arrays` — the production path: splits are enumerated
   as index arrays (one gather per (k, r) split shape), antecedent/consequent
-  supports are resolved with a single vectorized ``np.unique`` join per
-  level, and support / confidence / lift are computed as torch float32 ops
-  on the CPU over the whole rule set at once, in the JAX package's
-  operation order.  The array form (:class:`RuleArrays`) carries packed
-  uint32 bitsets in the word layout of the K1 kernel — the input format of
-  the serving rulebook compiler (``serving/rulebook.py``, DESIGN.md §8).
+  supports are resolved by :func:`_lookup_supports`, and support /
+  confidence / lift are computed as torch float32 ops on the CPU over the
+  whole rule set at once, in the JAX package's operation order.  The array
+  form (:class:`RuleArrays`) carries packed uint32 bitsets in the word
+  layout of the K1 kernel — the input format of the serving rulebook
+  compiler (``serving/rulebook.py``, DESIGN.md §8).
 
 Both paths skip splits whose antecedent *or* consequent support is absent
 from the mined result (a truncated/partial ``AprioriResult`` — e.g. a
 filtered resume checkpoint — would otherwise yield rules with undefined
 confidence or ``lift=NaN``), and both sort deterministically:
 ``(-confidence, -support, antecedent, consequent)``.
+
+The support lookup packs rows into int64 keys as the candidate prune does
+(``core/candidates.py``): where every id of the level's table and of the
+queries is non-negative and fits in ``b`` bits with ``b * width <= 63``, the
+table's keys are sorted once and ``np.searchsorted`` finds each query's.
+Wider ids fall back to one ``np.unique`` over the stacked (table ∪ queries)
+rows.  Both give the same supports, a repeated table row resolving to its
+last support.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import itemsets as enc
+from repro_torch.core.candidates import _pack
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,27 +143,41 @@ class RuleArrays:
         return rules[:max_rules] if max_rules else rules
 
 
-def _lookup_supports(level, queries: np.ndarray) -> np.ndarray:
+def _lookup_supports(level, queries: np.ndarray):
     """Vectorized itemset -> support join: for each query row (sorted item
-    ids) return its mined support, or 0 if absent. One ``np.unique`` over
-    the stacked (table ∪ queries) rows — no per-row Python."""
+    ids) its mined support, or 0 if absent, and the path that resolved it:
+    ``"keyed"`` (sorted int64 keys), ``"rows"`` (one ``np.unique`` over the
+    stacked table and query rows), or None where there was no table to
+    search.  No per-row Python."""
     q = queries.shape[0]
     if level is None or q == 0:
-        return np.zeros(q, dtype=np.int64)
+        return np.zeros(q, dtype=np.int64), None
     table, sup = level
     if table.shape[0] == 0:
-        return np.zeros(q, dtype=np.int64)
+        return np.zeros(q, dtype=np.int64), None
+    table, queries = np.asarray(table), np.asarray(queries)
+    bits = max(1, int(max(table.max(), queries.max())).bit_length())
+    if min(table.min(), queries.min()) >= 0 and bits * table.shape[1] <= 63:
+        # stable, so the last of a repeated row sits last among its equals
+        keys = _pack(table, bits)
+        order = np.argsort(keys, kind="stable")
+        keys = keys[order]
+        want = _pack(queries, bits)
+        at = np.searchsorted(keys, want, side="right") - 1
+        found = keys[np.maximum(at, 0)] == want
+        return np.where(found, np.asarray(sup, np.int64)[order][at], 0), "keyed"
     stacked = np.concatenate([np.asarray(table, np.int64), np.asarray(queries, np.int64)])
     _, inv = np.unique(stacked, axis=0, return_inverse=True)
     by_uid = np.zeros(int(inv.max()) + 1, dtype=np.int64)
     by_uid[inv[: table.shape[0]]] = np.asarray(sup, np.int64)
-    return by_uid[inv[table.shape[0]:]]
+    return by_uid[inv[table.shape[0]:]], "rows"
 
 
 def extract_rule_arrays(
     result,
     min_confidence: float = 0.5,
     num_items: int | None = None,
+    obs=None,
 ) -> RuleArrays:
     """Vectorized rule extraction into :class:`RuleArrays`.
 
@@ -163,6 +186,9 @@ def extract_rule_arrays(
     the confidence filter runs in float64 (bit-identical selection to the
     Python reference) and the returned score columns are computed as torch
     float32 ops on the CPU over all surviving rules at once.
+
+    ``obs`` (optional mining observer) counts the query rows each lookup
+    resolved by its path (``on_rule_lookup_rows``); observation only.
     """
     levels = result.levels
     n = result.num_transactions
@@ -186,8 +212,12 @@ def extract_rule_arrays(
             comp = np.nonzero(mask)[1].reshape(p, k - r)                          # (P, k-r)
             ante = np.asarray(sets_k)[:, patterns].reshape(f * p, r)
             cons = np.asarray(sets_k)[:, comp].reshape(f * p, k - r)
-            s_a = _lookup_supports(levels.get(r), ante)
-            s_c = _lookup_supports(levels.get(k - r), cons)
+            s_a, a_path = _lookup_supports(levels.get(r), ante)
+            s_c, c_path = _lookup_supports(levels.get(k - r), cons)
+            if obs is not None:
+                for rows, path in ((ante, a_path), (cons, c_path)):
+                    if path is not None:
+                        obs.on_rule_lookup_rows(rows.shape[0], path)
             # f64 selection — the same arithmetic the reference performs
             with np.errstate(divide="ignore", invalid="ignore"):
                 conf64 = np.asarray(sup_k, np.float64).repeat(p) / s_a

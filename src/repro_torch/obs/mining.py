@@ -286,6 +286,12 @@ class MiningObs:
         (structured row views)."""
         self.registry.counter("mine_prune_rows", {"level": str(level), "path": path}).inc(rows)
 
+    def on_rule_lookup_rows(self, rows: int, path: str) -> None:
+        """Query rows a rule extraction's support lookup resolved, by the
+        path that resolved them: ``"keyed"`` (sorted int64 keys) or
+        ``"rows"`` (``np.unique`` over structured rows)."""
+        self.registry.counter("mine_rule_lookup_rows", {"path": path}).inc(rows)
+
     def on_split_rows(self, rows: int) -> None:
         """The transaction rows this rank places and counts (its own split
         on a mesh, padding left out)."""

@@ -156,11 +156,12 @@ def compile_rulebook(
     truncated, padded serving columns (a host rulebook).
 
     ``obs`` (optional mining observer) times the ``rules_extract``,
-    ``rules_sort`` and ``rules_pad`` phases; observation only."""
+    ``rules_sort`` and ``rules_pad`` phases and counts the extraction's
+    support lookups (``extract_rule_arrays``); observation only."""
     if score not in SCORE_KINDS:
         raise ValueError(f"score must be one of {SCORE_KINDS}, got {score!r}")
     with phase(obs, "rules_extract"):
-        arr = rules_mod.extract_rule_arrays(result, min_confidence, num_items)
+        arr = rules_mod.extract_rule_arrays(result, min_confidence, num_items, obs=obs)
     with phase(obs, "rules_sort"):
         scores = np.asarray(arr.confidence if score == "confidence" else arr.lift, np.float32)
         # descending score, bitset tie-break (np.lexsort: last key is primary)

@@ -28,6 +28,7 @@ from repro.core.itemsets import unpack_bits  # noqa: E402
 from repro.data import store as jst  # noqa: E402
 from repro.distributed.fault_tolerance import FaultConfig as JFaultConfig  # noqa: E402
 from repro_torch.core import apriori as tapr  # noqa: E402
+from repro_torch.core import rules as trules  # noqa: E402
 from repro_torch.core import son as tson  # noqa: E402
 from repro_torch.core import streaming  # noqa: E402
 from repro_torch.core.itemsets import pack_bits  # noqa: E402
@@ -293,8 +294,9 @@ def test_obs_recorder_sees_the_jax_miners_phases_and_chunks(tmp_path, small_db, 
     s = _store(small_db, tmp_path / "db", shard_rows=80)
     fault = dict(port=FaultConfig(max_workers=1), jax=JFaultConfig(max_workers=1))
     got, want = _Recorder(), _Recorder()
-    streaming.mine_streamed(s, tcfg, device="cpu", chunk_rows=70, obs=got)
+    res = streaming.mine_streamed(s, tcfg, device="cpu", chunk_rows=70, obs=got)
     jstream.mine_streamed(jst.open_store(s.path), jcfg, chunk_rows=70, obs=want)
+    trules.extract_rule_arrays(res, 0.3, obs=got)   # the port's rule compile counts its lookups
     streaming.mine_son_streamed(s, tcfg, device="cpu", chunk_rows=70, obs=got, fault=fault["port"])
     jstream.mine_son_streamed(jst.open_store(s.path), jcfg, chunk_rows=70, obs=want, fault=fault["jax"])
     assert got.phases - PORT_ONLY_PHASES == want.phases >= {"candidate_gen", "prefetch_stall", "count_kernel",
