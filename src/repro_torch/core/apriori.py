@@ -326,7 +326,7 @@ def _count_level(count_step, t_dev, cand_sets: np.ndarray, num_items: int, cfg: 
     pending = []
     reduces = mesh is not None and mesh.group_size(cfg.data_axes) > 1
     timer = device_timer(obs, "count_kernel", t_dev.device, lap="count_reduce" if reduces else None)
-    step = functools.partial(count_step, on_map=timer.lap) if reduces and obs is not None else count_step
+    step = functools.partial(count_step, on_map=timer.lap) if reduces else count_step
 
     def _drain(limit):
         while len(pending) > limit:

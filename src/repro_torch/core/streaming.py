@@ -66,7 +66,7 @@ from repro_torch.core import son as son_mod
 from repro_torch.core.mapreduce import all_reduce
 from repro_torch.data.pipeline import ShardedBatchIterator
 from repro_torch.launch.mesh import mesh_device
-from repro_torch.obs.mining import device_timer
+from repro_torch.obs.mining import device_timer, phase
 from repro_torch.distributed.checkpoint import (
     CheckpointMismatch,
     MiningCheckpoint,
@@ -143,6 +143,19 @@ def _packed_chunks(store, chunk_rows: int, start_chunk: int = 0, shards: tuple |
     )
 
 
+def _observed(it, obs):
+    """The chunks of ``it``.  With an observer, the time the fold blocked
+    on each chunk it yields is phase ``prefetch_stall`` (the final, empty
+    ``next`` is not counted), and the chunk's rows go to ``on_chunk``."""
+    t0 = time.perf_counter()
+    for chunk in it:
+        if obs is not None:
+            obs.add_phase("prefetch_stall", t0, time.perf_counter())
+            obs.on_chunk(int(chunk.shape[0]))
+        yield chunk
+        t0 = time.perf_counter()
+
+
 def _count_pass_chunks(
     accum_step,
     chunks,
@@ -183,36 +196,17 @@ def _count_pass_chunks(
     timer = device_timer(obs, "count_kernel", device)
     it = ShardedBatchIterator(chunks, device, mesh=mesh, data_axes=cfg.data_axes, prefetch=prefetch)
     try:
-        if obs is None:
-            for t_chunk in it:
+        for t_chunk in _observed(it, obs):
+            with timer:
                 accum_step(t_chunk, c_dev, len_dev, acc)
-                done += 1
-                if save_fn is not None and save_every > 0 and done % save_every == 0:
+            done += 1
+            if save_fn is not None and save_every > 0 and done % save_every == 0:
+                with phase(obs, "checkpoint_write"):
                     save_fn(_reduced(acc, cfg, mesh), done)
-        else:
-            src = iter(it)
-            while True:
-                t0 = time.perf_counter()
-                try:
-                    t_chunk = next(src)
-                except StopIteration:
-                    break
-                obs.add_phase("prefetch_stall", t0, time.perf_counter())
-                with timer:
-                    accum_step(t_chunk, c_dev, len_dev, acc)
-                obs.on_chunk(int(t_chunk.shape[0]))
-                done += 1
-                if save_fn is not None and save_every > 0 and done % save_every == 0:
-                    t3 = time.perf_counter()
-                    save_fn(_reduced(acc, cfg, mesh), done)
-                    obs.add_phase("checkpoint_write", t3, time.perf_counter())
     finally:
         it.close()
-    if obs is None:
-        return _reduced(acc, cfg, mesh)   # the final host sync of this candidate pass
-    t0 = time.perf_counter()
-    out = _reduced(acc, cfg, mesh)
-    obs.add_phase("host_sync", t0, time.perf_counter())
+    with phase(obs, "host_sync"):
+        out = _reduced(acc, cfg, mesh)   # the final host sync of this candidate pass
     timer.flush()
     return out
 
@@ -489,32 +483,17 @@ def count_union_streamed(
         it = ShardedBatchIterator(_packed_chunks(store, chunk_rows, shards=shards), dev,
                                   mesh=mesh, data_axes=cfg.data_axes, prefetch=prefetch)
         try:
-            if obs is None:
-                for t_chunk in it:
+            for t_chunk in _observed(it, obs):
+                with timer:
                     for _, _, _, c_dev, len_dev, acc in units:
                         accum_step(t_chunk, c_dev, len_dev, acc)
-            else:
-                src = iter(it)
-                while True:
-                    t0 = time.perf_counter()
-                    try:
-                        t_chunk = next(src)
-                    except StopIteration:
-                        break
-                    obs.add_phase("prefetch_stall", t0, time.perf_counter())
-                    with timer:
-                        for _, _, _, c_dev, len_dev, acc in units:
-                            accum_step(t_chunk, c_dev, len_dev, acc)
-                    obs.on_chunk(int(t_chunk.shape[0]))
         finally:
             it.close()
 
-    t_sync0 = time.perf_counter()
     counts = {k: np.zeros(cands.shape[0], dtype=np.int64) for k, cands in per_level.items()}
-    for k, start, rows, _, _, acc in units:
-        counts[k][start : start + rows] = _reduced(acc, cfg, mesh)[:rows]
-    if obs is not None:
-        obs.add_phase("host_sync", t_sync0, time.perf_counter())
+    with phase(obs, "host_sync"):
+        for k, start, rows, _, _, acc in units:
+            counts[k][start : start + rows] = _reduced(acc, cfg, mesh)[:rows]
     timer.flush()
     return counts
 

@@ -9,10 +9,11 @@ wall-time split, partition retry/speculation counters), an optional
 chunk phases nest under it), and an optional :class:`MiningProgress`
 reporter that prints throughput + ETA while a multi-minute mine streams.
 
-Everything is observation-only.  Call sites guard with ``if obs is not
-None`` so the uninstrumented path stays untouched, and nothing here feeds
-back into mining decisions — mined dicts are bit-identical with obs on/off
-(CI-enforced).
+Everything is observation-only.  Call sites time through :func:`phase`
+and :func:`device_timer`, which do nothing at all for ``obs=None``, so one
+code path serves the instrumented and the uninstrumented run; nothing here
+feeds back into mining decisions — mined dicts are bit-identical with obs
+on/off (CI-enforced).
 
 Phase taxonomy (the per-phase wall-time split):
 

@@ -50,24 +50,18 @@ and the next batch is answered as usual.  A swap is two commands: the rulebook's
 host columns, each rank placing and warming its block, and an exchange of
 every rank's outcome; only when every rank holds its block does the leader
 commit, and the commit tells the followers to drop the older blocks.  A
-refresh from :class:`~repro_torch.serving.refresh.RefreshController` mines
-beside serving: one command starts the mine on every rank, which runs in a
-thread of its own on the controller's mine mesh (groups of its own, so
-the two threads of a rank never share a group; its shape is the
-controller's, which may differ from the gateway's), and the gateway goes on
-answering batches meanwhile.  Once every rank has mined and the ranks have
-exchanged their outcomes (in the default group's store), the leader takes
-the stream, names the generation, and each rank places its block of its
-own rulebook; the commit follows at once, under the same lock, and a
-follower's ``refresh_now`` returns once it has applied it.  A mesh
-``Router``'s replicas are refreshed by a controller that drives its own
-cycles: no MINE command comes, and a follower places the rulebook its
-controller mined when the PLACE command comes.  While the
-leader is idle it sends a heartbeat every quarter of the mesh's timeout, so
-a follower waiting for a command never times out.  ``close()`` on the
-leader resolves every admitted request, then stops the followers; on a
-follower it waits for that stop and for a mine in flight.  A mesh of one
-rank is the single-device gateway.
+refresh from :class:`~repro_torch.serving.refresh.RefreshController` is
+the controller's to drive (its module docstring): it mines on every rank
+beside serving, and the gateway goes on answering batches meanwhile.  The
+gateway's part is the swap: the leader's :meth:`_swap_mined` names the
+generation, the PLACE command has each rank place and warm its block of the
+rulebook its own controller mined, and the commit follows at once, under
+the same lock.  While the leader is idle it sends a heartbeat every quarter
+of the mesh's timeout, so a follower waiting for a command never times out.
+``close()`` on the leader resolves every admitted request, then stops the
+followers; on a follower it waits for that stop and for its refresh
+controller's follow loop, which ends with it.  A mesh of one rank is the
+single-device gateway.
 """
 
 from __future__ import annotations
@@ -83,7 +77,6 @@ import torch
 
 from repro_torch.core import itemsets as enc
 from repro_torch.core.mapreduce import StepFaults
-from repro_torch.data.store import open_store
 from repro_torch.launch.mesh import mesh_device
 from repro_torch.serving.batcher import AdmissionRejected, MicroBatcher, Request
 from repro_torch.serving.cache import BasketCache, basket_key
@@ -92,8 +85,8 @@ from repro_torch.serving.recommend import batch_gathers, make_match_step, match_
 from repro_torch.serving.rulebook import Rulebook, place_rulebook
 
 # the leader's commands to the followers
-BATCH, PREPARE, COMMIT, MINE, PLACE, HEARTBEAT, STOP = range(1, 8)
-_HEADER = 6   # int64 fields: op, generation, bucket, top_k, rows, send time (us)
+BATCH, PREPARE, COMMIT, PLACE, HEARTBEAT, STOP = range(1, 7)
+_HEADER = 5   # int64 fields: op, generation, bucket, top_k, send time (us)
 
 
 @dataclasses.dataclass
@@ -136,52 +129,24 @@ class _Commands:
         self.lock = threading.RLock()
         self.sent = time.monotonic()
 
-    def send(self, op: int, generation: int = 0, bucket: int = 0, top_k: int = 0, rows: int = 0,
+    def send(self, op: int, generation: int = 0, bucket: int = 0, top_k: int = 0,
              b: np.ndarray | None = None) -> None:
-        self.head[:] = torch.tensor([op, generation, bucket, top_k, rows, int(time.time() * 1e6)])
+        self.head[:] = torch.tensor([op, generation, bucket, top_k, int(time.time() * 1e6)])
         if b is not None:
             self.buf[2 * _HEADER : 2 * _HEADER + b.size] = torch.from_numpy(b.view(np.int32).reshape(-1))
         self.mesh.broadcast(self.buf)
         self.sent = time.monotonic()
 
     def recv(self):
-        """The next command: ``(op, generation, bucket, top_k, rows,
-        seconds since the leader sent it, words or None)``."""
+        """The next command: ``(op, generation, bucket, top_k, seconds
+        since the leader sent it, words or None)``."""
         self.mesh.broadcast(self.buf)
-        op, generation, bucket, top_k, rows, t_us = self.head.tolist()
+        op, generation, bucket, top_k, t_us = self.head.tolist()
         b = None
         if op == BATCH:
             b = self.buf[2 * _HEADER : 2 * _HEADER + bucket * self.words].numpy()
             b = b.reshape(bucket, self.words).view(np.uint32).copy()
-        return op, generation, bucket, top_k, rows, max(0.0, time.time() - t_us / 1e6), b
-
-
-class _Mine:
-    """A follower's refresh mine: a thread of its own, beside the follow
-    thread, running the controller's mine cycle on its mine mesh.  ``made``
-    holds the rulebook before the ranks exchange their outcomes, so the
-    follow thread finds it when the place command comes; ``error`` is what
-    ended the thread, if anything (a follower's ``close()`` raises it)."""
-
-    def __init__(self, gateway: "Gateway", rows: int):
-        self.rows, self.t0 = rows, time.perf_counter()
-        self.made: dict = {}
-        self.placed: int | None = None   # the generation placed from it, until its commit
-        self.error: BaseException | None = None
-        self.thread = threading.Thread(target=self._run, args=(gateway,), name="refresh-mine", daemon=True)
-        self.thread.start()
-
-    def _run(self, gateway: "Gateway") -> None:
-        controller = gateway._refresher
-        try:
-            if gateway.device.type == "cuda":   # the current card is a thread's own
-                torch.cuda.set_device(gateway.device)
-            errors = controller._mine_cycle(self.rows, self.made)
-        except BaseException as e:  # noqa: BLE001 — close() re-raises it
-            self.error = e
-            errors = [f"rank {gateway._mesh.rank}: {traceback.format_exc()}"]
-        if errors:   # the leader places nothing: the cycle ends here
-            controller._followed(None, errors, self.made, self.rows, time.perf_counter() - self.t0)
+        return op, generation, bucket, top_k, max(0.0, time.time() - t_us / 1e6), b
 
 
 def pow2_bucket(n: int, max_batch: int, multiple: int = 1) -> int:
@@ -298,12 +263,9 @@ class Gateway:
             self._warm(self._generation)
         if not self.leader:
             # the generations a follower holds, by id: the serving one and
-            # any prepared one (only the follow thread touches it; a
-            # refresh's mine thread hands its rulebook over in its ``_Mine``)
+            # any prepared one (only the follow thread touches it)
             self._held = {0: self._generation}
-            self._refresher = None
-            self._attached = threading.Condition()
-            self._mine: _Mine | None = None   # the refresh mine of the cycle in flight
+            self._refresher = None   # a mesh RefreshController's (:meth:`_attach`)
             self._follow_error: BaseException | None = None
             self._follower = threading.Thread(target=self._follow, name="gateway-follower", daemon=True)
             self._follower.start()
@@ -335,16 +297,14 @@ class Gateway:
     def close(self) -> None:
         """Stop admitting; every already-admitted request still resolves.
         On a mesh the leader then stops the followers; a follower's
-        ``close()`` waits for that stop and for its refresh mine in flight,
-        and raises what ended its loop or its mine."""
+        ``close()`` waits for that stop and for its refresh controller's
+        follow loop, which ends with it, and raises what ended its loop."""
         if not self.leader:
             self._follower.join()
-            mine = self._mine
-            if mine is not None:
-                mine.thread.join()
-            for error in (self._follow_error, mine and mine.error):
-                if error is not None:
-                    raise error
+            if self._refresher is not None:
+                self._refresher._loop.join()
+            if self._follow_error is not None:
+                raise self._follow_error
             return
         self._closed = True
         self._batcher.close()
@@ -695,26 +655,16 @@ class Gateway:
                                f"failed on {len(errors)} rank(s):\n" + "\n".join(errors))
         return gen
 
-    def _refresh(self, controller) -> tuple:
-        """Leader: one refresh cycle of a mesh ``RefreshController`` on
-        every rank.  The mine runs beside serving, outside the locks; then
-        the place and the commit go through the command stream, with the
-        generation id taken under the swap lock (an operator's swap may
-        have landed during the mine).  Returns ``(generation, what the
-        cycle made, the rows it covers)``."""
-        with self._commands.lock:
-            self._open_stream()
-            rows = open_store(controller.store_path).num_transactions
-            self._commands.send(MINE, rows=rows)
-        made = {}
-        errors = controller._mine_cycle(rows, made)
-        if errors:
-            raise RuntimeError(f"generation {self.generation} keeps serving: the refresh's mine failed on "
-                               f"{len(errors)} rank(s):\n" + "\n".join(errors))
+    def _swap_mined(self, rulebook: Rulebook) -> tuple:
+        """Leader, a mesh ``RefreshController``'s cycle: every rank places
+        its block of the rulebook it mined itself (:meth:`_place_mined`),
+        and the commit follows at once.  The generation id is taken under
+        the swap lock, so an operator's swap during the mine keeps its own.
+        Returns ``(generation, [0])``, shaped as ``Router._swap_mined``'s
+        ``(generation, the ids of the replicas committed)``: the gateway is
+        its own one replica."""
         with self._swap_lock, self._commands.lock:   # the commit follows the place at once
-            gen_id = self._generation.generation + 1
-            self.commit_swap(self._place_mined(made["rulebook"], gen_id))
-        return gen_id, made, rows
+            return self.commit_swap(self._place_mined(rulebook, self._generation.generation + 1)), [0]
 
     def _place_mined(self, rulebook: Rulebook, generation: int) -> _Generation:
         """Leader, a mesh refresh's place: every rank places and warms its
@@ -734,12 +684,11 @@ class Gateway:
             raise RuntimeError(f"the gateway is closed; generation {self.generation} keeps serving")
 
     def _attach(self, controller) -> None:
-        """A mesh ``RefreshController`` of this gateway: a follower runs its
-        cycles when the leader's commands say so."""
+        """A mesh ``RefreshController`` of this gateway: a follower places
+        the rulebook it mined at the PLACE command, and its ``close()``
+        waits for the controller's follow loop."""
         if not self.leader:
-            with self._attached:
-                self._refresher = controller
-                self._attached.notify_all()
+            self._refresher = controller
 
     def _await_generation(self, generation: int) -> None:
         """Follower: return once the leader's commit of ``generation`` (or
@@ -756,48 +705,23 @@ class Gateway:
             if self.device.type == "cuda":   # the current card is a thread's own
                 torch.cuda.set_device(self.device)
             while True:
-                op, generation, bucket, top_k, rows, sent_s, b = self._commands.recv()
+                op, generation, bucket, top_k, sent_s, b = self._commands.recv()
                 if op == BATCH:
                     self.mesh_timing["broadcast_s"] += sent_s
                     self._mesh_batch(b, generation, top_k)
-                elif op == PREPARE:
-                    host = self._mesh.broadcast_object()
-                    gen, _ = self._prepare_everywhere(generation, lambda: host)
+                elif op in (PREPARE, PLACE):
+                    if op == PREPARE:   # an operator's swap: the leader's host columns
+                        rulebook = self._mesh.broadcast_object()
+                    else:   # a refresh: the rulebook this rank's controller mined
+                        rulebook = getattr(self._refresher, "mined", {}).get("rulebook")
+                        if rulebook is None:
+                            raise RuntimeError("the leader places a refresh this rank has not mined")
+                    gen, _ = self._prepare_everywhere(generation, lambda: rulebook)
                     if gen is not None:
                         self._held[generation] = gen
                 elif op == COMMIT:
                     self._generation = self._held[generation]
                     self._held = {generation: self._generation}
-                    mine = self._mine
-                    if mine is not None and mine.placed == generation:   # the refresh's commit
-                        mine.placed = None
-                        self._refresher._followed(generation, [], mine.made, mine.rows,
-                                                  time.perf_counter() - mine.t0)
-                elif op == MINE:
-                    with self._attached:
-                        if not self._attached.wait_for(lambda: self._refresher is not None,
-                                                       timeout=self._mesh.timeout_s):
-                            raise RuntimeError("the leader refreshes, but no RefreshController was "
-                                               "built on this rank")
-                    if self._mine is not None:   # the last cycle's, past the exchange the
-                        self._mine.thread.join()  # leader passed before this command
-                    self._mine = _Mine(self, rows)
-                elif op == PLACE:
-                    # what this rank mined: in this gateway's refresh mine, or in the
-                    # controller, where it drives the cycles itself (a router's replica)
-                    mine = self._mine
-                    made = mine.made if mine is not None else getattr(self._refresher, "mined", {})
-                    if "rulebook" not in made:
-                        raise RuntimeError("the leader places a refresh this rank has not mined")
-                    gen, errors = self._prepare_everywhere(generation, lambda: made["rulebook"])
-                    if mine is None:   # the controller learns the cycle's end from the leader
-                        if not errors:
-                            self._held[generation] = gen
-                    elif errors:   # the leader commits nothing: the cycle ends here
-                        self._refresher._followed(generation, errors, mine.made, mine.rows,
-                                                  time.perf_counter() - mine.t0)
-                    else:        # it ends at the commit that follows
-                        self._held[generation], mine.placed = gen, generation
                 elif op == STOP:
                     return
         except BaseException as e:  # noqa: BLE001 — close() re-raises it
@@ -844,7 +768,7 @@ class Gateway:
             with self._commands.lock:
                 gen = self._generation
                 t_send = time.perf_counter()
-                self._commands.send(BATCH, gen.generation, bucket, k, len(group), b)
+                self._commands.send(BATCH, gen.generation, bucket, k, b)
                 self.mesh_timing["broadcast_s"] += time.perf_counter() - t_send
                 idx, vals = self._mesh_batch(b, gen.generation, k)
         t_dev = time.perf_counter()

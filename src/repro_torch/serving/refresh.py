@@ -23,59 +23,55 @@ and kicks an immediate cycle, turning a burning freshness budget into a
 refresh instead of a page.
 
 On a mesh (``mesh=``, one process a rank) every rank builds the controller
-beside its rank of a mesh :class:`~repro_torch.serving.gateway.Gateway`.
-The controller's mesh mines and the gateway's serves, as in the JAX
-package, where the controller mines on its ``mesh`` and the target's
-``hot_swap`` places the rulebook on the target's own mesh: the two may
-differ in shape (a gateway serving on a 2 x 2 ``("data", "model")`` mesh,
-refreshed by a data-parallel (4, 1) mine) or be one mesh; they only span
-the same ranks.  ``cfg.data_axes`` and ``cfg.model_axis`` are read on the
-controller's mesh, the gateway's ``data_axes`` and ``rule_axis`` on its
-own.  Each rank thus works on two sets of groups: the gateway's, which
-carry serving (the command stream, the batches' collectives, the place and
-the commit), and the controller's own :attr:`RefreshController.mine_mesh`
-(a ``Mesh.twin`` of the controller's mesh, built at construction: never
-the gateway's groups, nor those of the mesh the caller passed), which
-carry only the mine.
-The leader's (rank 0's) poller decides when to refresh, by the same
-watermark hysteresis.  A cycle mines beside serving, as the JAX package's
-does: the leader sends one command that starts the mine on every rank, and
-each rank runs the delta mine (or the full one) on the mine mesh in a
-thread of its own (on the card, on a CUDA stream of its own), compiles the
-same rulebook (compiling is deterministic), while the gateway goes on
-answering batches with the serving generation.  The ranks then exchange
-their outcomes in the default group's store, keyed by the cycle, never on
-the mine mesh.  Only then does the leader take the command stream, name the
-generation, have every rank place its block of its own rulebook, and commit
-once every rank holds it.  A cycle that fails on any rank fails on every
-rank, and the previous generation keeps serving: a rank that raises aborts
-the mine mesh (``Mesh.abort``), so the ranks waiting in one of its
-collectives let go within ``launch.mesh.ABORT_POLL_S``, and every rank then
-replaces the mine mesh (``Mesh.twin``) and destroys the old one's groups
-before the cycle ends, so the next cycle mines on groups no collective is
-left in.  ``refresh_now()`` is a collective call: on the leader it drives a
-cycle, on a follower it waits for the cycle the leader drives next and
-returns its generation once that generation serves there.
+beside its rank of the target: a mesh
+:class:`~repro_torch.serving.gateway.Gateway` or a mesh
+:class:`~repro_torch.serving.router.Router` on the same ranks (every rank
+passes its own), or a target on one device (a ``Gateway`` or ``Router`` on
+rank 0, which the other ranks pass as None).  At construction the ranks
+exchange what each passed, and every rank raises ``ValueError`` unless they
+agree on one of these kinds.  The controller's mesh mines and the target's
+serves, as in the JAX package, where the controller mines on its ``mesh``
+and the target's ``hot_swap`` places the rulebook on the target's own mesh:
+the two may differ in shape (a gateway serving on a 2 x 2 ``("data",
+"model")`` mesh, refreshed by a data-parallel (4, 1) mine) or be one mesh;
+they only span the same ranks.  ``cfg.data_axes`` and ``cfg.model_axis``
+are read on the controller's mesh, the target's ``data_axes`` and
+``rule_axis`` on its own.  Each rank thus works on two sets of groups: the
+target's, which carry serving (the command stream, the batches'
+collectives, the place and the commit), and the controller's own
+:attr:`RefreshController.mine_mesh` (a ``Mesh.twin`` of the controller's
+mesh, built at construction: never the target's groups, nor those of the
+mesh the caller passed), which carry only the mine.
 
-A target that is not a mesh gateway is refreshed on the mesh too, as the
-JAX package mines on its mesh whatever the target: a
-:class:`~repro_torch.serving.router.Router` whose replicas serve on a mesh
-of the same ranks (every rank passes its rank of it), or a target on one
-device (a ``Gateway`` or ``Router`` on rank 0, which the other ranks pass
-as None).  At construction the ranks exchange what each passed, and every
-rank raises ``ValueError`` unless they agree on one of these kinds.
-No gateway's command stream carries these cycles, so the controller drives
-them: the leader starts each cycle on every rank with a key in the store
-(the rows it covers), every rank mines on the mine mesh (a follower in a
-thread of its own, started with the controller) and the ranks exchange
-outcomes as above; then the leader swaps the target: ``hot_swap`` on one
-device, or the router's coordinated swap in which each replica's ranks
-place their blocks of the rulebook each rank mined (the PLACE command, not
-a broadcast of the leader's columns), every replica committed to one
-generation.  The leader hands the outcome (the generation and the replicas
-committed, or the error) to the followers through the store, and a
-follower's ``refresh_now`` returns it once those replicas serve it there.
-``close()`` on the leader ends the followers' loops.
+Every cycle on a mesh runs one protocol, whatever the target.  The leader's
+(rank 0's) poller decides when to refresh, by the same watermark
+hysteresis, and starts the cycle on every rank with a key in the default
+group's store (the rows it covers); a follower runs the cycles in a thread
+of its own, started with the controller.  Every rank runs the delta mine
+(or the full one) on the mine mesh beside serving (on the card, on a CUDA
+stream of its own) and compiles the same rulebook (compiling is
+deterministic), while the target goes on answering with the serving
+generation.  The ranks then exchange their outcomes in the store, keyed by
+the cycle, never on the mine mesh.  Only then does the leader swap:
+``hot_swap`` on one device; on a mesh target each rank places its block of
+the rulebook it mined itself (the gateway's PLACE command, in
+``Gateway._swap_mined`` or in each replica of ``Router._swap_mined``), and
+the leader commits once every rank holds it.  The leader hands the outcome
+(the generation and the replicas committed, or the error) to the followers
+through the store, and a follower's ``refresh_now`` returns the generation
+once those replicas serve it there.  A cycle that fails on any rank fails
+on every rank, and the previous generation keeps serving: a rank that
+raises aborts the mine mesh (``Mesh.abort``), so the ranks waiting in one
+of its collectives let go within ``launch.mesh.ABORT_POLL_S``, and every
+rank then replaces the mine mesh (``Mesh.twin``) and destroys the old
+one's groups before the cycle ends, so the next cycle mines on groups no
+collective is left in.  ``refresh_now()`` is a collective call: on the
+leader it drives a cycle, on a follower it waits for the cycle the leader
+drives next and returns its generation once that generation serves there.
+``close()`` on the leader ends the followers' loops after a cycle in
+flight.  A follower's loop also ends once every follow loop of its mesh
+target has (the leader closed the target): no cycle can commit there any
+more, and a follower's ``Gateway.close()`` waits for it.
 """
 
 from __future__ import annotations
@@ -190,11 +186,7 @@ class RefreshController:
         self.mine_mesh = mesh.twin() if self._on_mesh else mesh
         if self._on_mesh:
             self._agree_on_target(target, placed)
-        # on a mesh, a mesh Gateway's command stream carries the cycles; for
-        # any other target the controller drives them itself
-        self._via_gateway = self._on_mesh and placed is not None and isinstance(target, Gateway)
-        self._driven = self._on_mesh and not self._via_gateway
-        self._mesh_router = self._driven and placed is not None
+        self._placed = self._on_mesh and placed is not None   # each rank places the rulebook it mined
         self.chunk_rows = chunk_rows
         self.prefetch = prefetch
         self.min_confidence = min_confidence
@@ -237,9 +229,8 @@ class RefreshController:
         self._stream = None
         self._cycles = 0   # the mine cycles run, alike on every rank
         self._closed = False
-        # a follower whose cycles the controller drives: what the cycle in
-        # flight mined (a mesh router's replicas place its rulebook), and
-        # the thread that runs the cycles
+        # a follower: what the cycle in flight mined (the target's PLACE
+        # command places its rulebook), and the thread that runs the cycles
         self.mined: dict = {}
         self._loop: threading.Thread | None = None
         self._loop_error: BaseException | None = None
@@ -251,7 +242,7 @@ class RefreshController:
                 self._stream = torch.cuda.Stream(self.device)
             if placed is not None:
                 target._attach(self)
-            if self._driven and not self.leader:
+            if not self.leader:
                 self._loop = threading.Thread(target=self._follow_cycles, name="refresh-follower", daemon=True)
                 self._loop.start()
 
@@ -293,16 +284,16 @@ class RefreshController:
         return self
 
     def stop(self) -> None:
-        """Stop the poller.  Where the controller drives a mesh's cycles
-        itself, this ends them too (:meth:`close`)."""
-        if self._driven:
+        """Stop the poller.  On a mesh this ends the cycles too
+        (:meth:`close`)."""
+        if self._on_mesh:
             self._closed = True
         self._stop.set()
         self._wake.set()
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if not self._driven:
+        if not self._on_mesh:
             return
         if self.leader:
             with self._lock:   # after a cycle in flight: the next cycle's start is the stop
@@ -313,12 +304,11 @@ class RefreshController:
             raise self._loop_error
 
     def close(self) -> None:
-        """Stop the poller and refresh no more.  Where the controller drives
-        a mesh's cycles itself, the leader's close waits for a cycle in
-        flight to mine, which then commits nothing (its ``refresh_now``
-        raises on every rank), and ends every follower's loop; a
-        follower's close waits for that end and raises what ended its
-        loop."""
+        """Stop the poller and refresh no more.  On a mesh the leader's
+        close waits for a cycle in flight to mine, which then commits
+        nothing (its ``refresh_now`` raises on every rank), and ends every
+        follower's loop; a follower's close waits for that end and raises
+        what ended its loop."""
         self._closed = True
         self.stop()
 
@@ -379,7 +369,7 @@ class RefreshController:
                     raise RuntimeError(f"the refresh controller is closed; generation "
                                        f"{self.target.generation} keeps serving")
                 if self._on_mesh:
-                    generation, made, rows = (self._drive() if self._driven else self.target._refresh(self))
+                    generation, made, rows = self._drive()
                     rulebook, report = made["rulebook"], made["report"]
                 else:
                     store = open_store(self.store_path)
@@ -392,12 +382,15 @@ class RefreshController:
             return self._record(generation, rulebook, report, rows, time.perf_counter() - t0)
 
     def _drive(self) -> tuple:
-        """Leader, a cycle the controller drives: start it on every rank (a
-        key in the store naming the rows it covers), mine on every rank
+        """Leader, a cycle on a mesh: start it on every rank (a key in the
+        store naming the rows it covers), mine on every rank
         (:meth:`_mine_cycle`), swap the target, and hand the outcome to the
         followers (a key in the store, set whatever happened after the
         mine).  Returns ``(generation, what the cycle made, the rows it
-        covers)``."""
+        covers)``.  A closed mesh target refuses the cycle before it
+        starts: its followers' loops have ended with it."""
+        if self._placed and self.target._closed:
+            raise RuntimeError(f"the target is closed; generation {self.target.generation} keeps serving")
         n, rows = self._cycles + 1, open_store(self.store_path).num_transactions
         if n > 2:   # every follower read cycle n - 2's keys before it reported cycle n - 1
             for key in ("start", "outcome"):
@@ -413,53 +406,67 @@ class RefreshController:
             if self._closed:
                 raise RuntimeError(f"the refresh controller was closed during the cycle; generation "
                                    f"{self.target.generation} keeps serving")
-            if self._mesh_router:   # each rank places the rulebook it mined
+            if self._placed:   # each rank places the rulebook it mined
                 generation, replicas = self.target._swap_mined(made["rulebook"])
             else:
                 generation, replicas = self.target.hot_swap(made["rulebook"]), []
             outcome = dict(generation=generation, replicas=replicas)
-        except Exception:
-            outcome = dict(error=f"rank 0: {traceback.format_exc()}")
+        except Exception:   # a closed mesh target ends the followers' loops (:meth:`_follow_cycles`)
+            outcome = dict(error=f"rank 0: {traceback.format_exc()}", closed=self._placed and self.target._closed)
             raise
         finally:
             self._store.set(f"refresh/{n}/outcome", json.dumps(outcome))
         return generation, made, rows
 
-    def _await_key(self, key: str) -> str:
+    def _gateways(self) -> list:
+        """A mesh target's gateways on this rank, by replica id (a mesh
+        ``Gateway`` is its own one replica)."""
+        return [self.target] if isinstance(self.target, Gateway) else [rep.gateway for rep in self.target.replicas]
+
+    def _await_key(self, key: str) -> str | None:
         """Follower: the value of ``key`` in this controller's store, once
         the leader has set it (no time limit: the leader refreshes when it
-        will)."""
+        will), or None once every follow loop of a mesh target on this rank
+        has ended (the leader closed the target: no cycle commits here any
+        more)."""
         while not self._store.check([key]):   # a lost store raises here
+            if self._placed and not any(gw._follower.is_alive() for gw in self._gateways()):
+                return None
             try:
-                self._store.wait([key], datetime.timedelta(seconds=1))
+                self._store.wait([key], datetime.timedelta(seconds=0.1))
             except RuntimeError:   # the wait timed out
                 pass
         return self._store.get(key).decode()
 
     def _follow_cycles(self) -> None:
-        """Follower, cycles the controller drives: each one the leader
-        starts, until its close.  A cycle whose mine succeeded on every rank
-        ends with the leader's outcome: its error, or its generation once
-        every replica it committed serves it on this rank."""
+        """Follower: each cycle the leader starts, until its close or until
+        the target no longer follows here.  A cycle whose mine succeeded on
+        every rank ends with the leader's outcome: its error, or its
+        generation once every replica it committed serves it on this rank.
+        A cycle that failed because the leader closed the target ends the
+        loop instead, and its ``refresh_now`` raises that the loop ended."""
         try:
             if self.device.type == "cuda":   # the current card is a thread's own
                 torch.cuda.set_device(self.device)
             while True:
                 n = self._cycles + 1
                 start = self._await_key(f"refresh/{n}/start")
-                if start == "stop":
+                if start in (None, "stop"):
                     return
                 t0, rows = time.perf_counter(), int(start)
                 self.mined = made = {}
                 errors, generation, what = self._mine_cycle(rows, made), None, "the refresh's mine"
                 if not errors:
-                    outcome = json.loads(self._await_key(f"refresh/{n}/outcome"))
+                    got = self._await_key(f"refresh/{n}/outcome")
+                    outcome = dict(closed=True) if got is None else json.loads(got)
+                    if outcome.get("closed"):
+                        return
                     if "error" in outcome:
                         errors, what = [outcome["error"]], "the refresh's swap"
                     else:
                         generation = outcome["generation"]
                         for rid in outcome["replicas"]:
-                            self.target.replicas[rid].gateway._await_generation(generation)
+                            self._gateways()[rid]._await_generation(generation)
                 self._followed(generation, errors, made, rows, time.perf_counter() - t0, what)
         except BaseException as e:  # noqa: BLE001 — close() re-raises it
             self._loop_error = e
@@ -497,7 +504,7 @@ class RefreshController:
         errors = self._exchange(error)
         if errors:
             # a collective call, reached by every rank in this cycle, before
-            # the next MINE command: the old groups may hold a collective
+            # the next cycle starts: the old groups may hold a collective
             # that no peer will join
             old, self.mine_mesh = self.mine_mesh, self.mine_mesh.twin()
             old.destroy()
@@ -574,12 +581,10 @@ class RefreshController:
         return generation
 
     def _followed(self, generation: int | None, errors: list, made: dict, rows: int, seconds: float,
-                  what: str | None = None) -> None:
-        """Follower: a cycle the leader drove has run here (``generation``
-        None: it failed before the leader named one, by default in the
-        mine)."""
+                  what: str) -> None:
+        """Follower: a cycle the leader drove has run here (``errors``: it
+        failed in ``what``)."""
         if errors:
-            what = what or ("the refresh's mine" if generation is None else f"the refresh to generation {generation}")
             outcome = RuntimeError(f"{what} failed:\n" + "\n".join(errors))
             self.last_error = outcome
             self.metrics.record_failure()
@@ -595,12 +600,9 @@ class RefreshController:
             self._handed += 1
             want = self._handed
             while len(self._outcomes) < want:
-                if self._driven and not self._loop.is_alive():
+                if not self._loop.is_alive():
                     raise RuntimeError("the refresh controller's follow loop ended before the refresh") from \
                         self._loop_error
-                if self._via_gateway and not self.target._follower.is_alive():
-                    raise RuntimeError("the gateway's follow loop ended before the refresh") from \
-                        self.target._follow_error
                 self._cycled.wait(0.1)
             outcome = self._outcomes[want - 1]
         if isinstance(outcome, BaseException):

@@ -88,7 +88,7 @@ def _held(items, scores, want_items, want_scores):
 def served(tmp_path_factory):
     """The DB and rulebooks of ``test_torch_mesh_gateway.py`` (gen 0 at
     min_support 0.04, the swap's at 0.06), a store of the DB with its count
-    cache (F13 appends the rows itself), four copies of it with the 40 rows
+    cache (F13 appends the rows itself), five copies of it with the 40 rows
     appended (F12), and the references: JAX's ``mine_delta`` and
     ``mine_streamed`` of the grown store, and the rulebook compiled from
     the first."""
@@ -109,7 +109,7 @@ def served(tmp_path_factory):
     for path in (grown, jax_store):
         jds.append_chunks([extra], path)
     stores = {}
-    for name in ("router", "gateway", "full", "close"):
+    for name in ("router", "gateway", "full", "close", "close_mesh"):
         stores[name] = str(root / f"single-{name}")
         shutil.copytree(grown, stores[name])
     jfull = jst.mine_streamed(jds.open_store(jax_store), JCFG, chunk_rows=64)
@@ -293,21 +293,23 @@ def test_f12_mode_full_mines_the_whole_store_as_jax(on_single, served):
         assert per_rank["full"]["result"] == served["jfull"] == served["jres2"]
 
 
-def test_f12_close_during_a_cycle_commits_nothing_and_ends_every_loop(on_single):
+@pytest.mark.parametrize("stage", ["close", "close_mesh"])
+def test_f12_close_during_a_cycle_commits_nothing_and_ends_every_loop(on_single, stage):
     """Rank 0 closes the controller while the cycle's mine is held on every
-    rank: its close waits for the mine, the cycle commits nothing (every
-    rank's ``refresh_now`` raises, generation 0 serves on), every
-    follower's loop ends, a later ``refresh_now`` raises on every rank, and
-    no rank is left with a thread of the tier."""
-    leader = on_single[0]["close"]
+    rank, the target on one device (``close``) or a mesh gateway
+    (``close_mesh``): its close waits for the mine, the cycle commits
+    nothing (every rank's ``refresh_now`` raises, generation 0 serves on),
+    every follower's loop ends, a later ``refresh_now`` raises on every
+    rank, and no rank is left with a thread of the tier."""
+    leader = on_single[0][stage]
     assert leader["close_waited"] and leader["closed"] and leader["generation"] == 0
     for per_rank in on_single:
-        closed = per_rank["close"]
+        closed = per_rank[stage]
         assert "closed during the cycle" in closed["refreshed"]["error"] and closed["history"] == []
         assert per_rank["threads_after_close"] == []
     assert "the refresh controller is closed" in leader["again"]["error"]
     for per_rank in on_single[1:]:
-        assert "follow loop ended before the refresh" in per_rank["close"]["again"]["error"]
+        assert "follow loop ended before the refresh" in per_rank[stage]["again"]["error"]
 
 
 @pytest.mark.parametrize("case", ["f12", "f13"])

@@ -33,8 +33,10 @@ from repro_torch.core import son as tson  # noqa: E402
 from repro_torch.core import streaming  # noqa: E402
 from repro_torch.core.itemsets import pack_bits  # noqa: E402
 from repro_torch.data import store as st  # noqa: E402
+from repro_torch.distributed.checkpoint import MiningCheckpoint  # noqa: E402
 from repro_torch.distributed.fault_tolerance import FaultConfig  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.obs.mining import MiningObs  # noqa: E402
 k3 = importlib.import_module("repro_torch.kernels.support_count")
 
 
@@ -251,6 +253,40 @@ def test_mine_streamed_checkpoint_cb_and_resume_state(tmp_path, small_db):
     assert set(seen) == set(full.levels)
     resume = {"levels": {k: v for k, v in full.levels.items() if k <= 2}, "next_k": 3}
     assert streaming.mine_streamed(s, cfg, device="cpu", resume_state=resume).as_dict() == full.as_dict()
+
+
+class _Saves(MiningCheckpoint):
+    """A checkpoint manager that logs each save's (level, mid-level, pass
+    start, chunks done)."""
+
+    def __init__(self, path):
+        super().__init__(path)
+        self.log = []
+
+    def save(self, state, store_fp, mine_fp):
+        self.log.append((state.next_k, state.mid_level, state.pass_start, state.chunks_done))
+        return super().save(state, store_fp, mine_fp)
+
+
+@pytest.mark.parametrize("every", [0, 2])
+@pytest.mark.parametrize("chunk_rows", [37, 128])
+def test_an_observer_changes_neither_the_fold_nor_its_checkpoints(tmp_path, small_db, chunk_rows, every):
+    """The streamed pass is one fold loop: with ``obs=None`` and with a
+    ``MiningObs`` it mines dict-equal results with the same launches, and
+    saves its checkpoints at the same chunks."""
+    cfg = tapr.AprioriConfig(min_support=0.05, max_k=4, max_candidates_per_pass=64)
+    s = _store(small_db, tmp_path / "db")
+    runs = []
+    for obs in (None, MiningObs()):
+        mgr = _Saves(str(tmp_path / f"ckpt-{obs is None}"))
+        before = ops.launch_counts()
+        res = streaming.mine_streamed(s, cfg, device="cpu", chunk_rows=chunk_rows, checkpoint=mgr,
+                                      checkpoint_every_chunks=every, obs=obs)
+        after = ops.launch_counts()
+        runs.append((res.as_dict(), {k: after[k] - before.get(k, 0) for k in after}, mgr.log))
+    (plain, plain_launches, plain_saves), (observed, observed_launches, observed_saves) = runs
+    assert plain == observed and plain_launches == observed_launches and plain_saves == observed_saves
+    assert any(mid for _, mid, _, _ in plain_saves) == (every > 0)
 
 
 def test_argument_validation_and_device_rule(tmp_path, small_db):

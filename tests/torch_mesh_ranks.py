@@ -1202,7 +1202,9 @@ def mesh_refresh_single(mesh, rb0, baskets, stores, cfg, top_k, max_batch, clien
     * ``full``: ``Gateway(rb0)``, ``mode="full"``: one refresh;
     * ``close``: ``Gateway(rb0)``; the refresh's mine held on every rank
       (:class:`HeldMines`) while rank 0 closes the controller, then
-      released; then every rank's ``refresh_now`` once more.
+      released; then every rank's ``refresh_now`` once more;
+    * ``close_mesh``: as ``close``, the target ``Gateway(rb0, mesh=mesh)``
+      on every rank, closed on every rank at the end.
 
     Each rank records every ``refresh_now``'s outcome, its history, the
     results mined, and the threads left; rank 0 the responses and each
@@ -1287,27 +1289,31 @@ def mesh_refresh_single(mesh, rb0, baskets, stores, cfg, top_k, max_batch, clien
             gw.close()
         out["full"].update(history=ctl.history, result=made[-1][0].as_dict())
 
-        # close() during a cycle
-        gw = Gateway(rb0, device="cpu", top_k=top_k, max_batch=max_batch) if lead else None
-        ctl = controller(stores["close"], gw)
-        with HeldMines(mesh.rank, hold_dir, {1: ("close", None)}) as held:
-            if lead:
-                refresher, box = _in_thread(ctl.refresh_now)
-                held.hold("close", mesh.size)
-                closer, _ = _in_thread(ctl.close)
-                time.sleep(0.3)
-                waited = closer.is_alive()
-                held.release("close")
-                closer.join(HOLD_S)
-                refresher.join(HOLD_S)
-                out["close"] = dict(refreshed=dict(error=box.get("error"), value=box.get("value")),
-                                    close_waited=waited, closed=not closer.is_alive(), generation=gw.generation)
+        # close() during a cycle, of a target on one device and of a mesh gateway
+        for name, on_mesh in (("close", False), ("close_mesh", True)):
+            gw = (Gateway(rb0, mesh=mesh if on_mesh else None, device="cpu", top_k=top_k, max_batch=max_batch)
+                  if lead or on_mesh else None)
+            ctl = controller(stores[name], gw)
+            with HeldMines(mesh.rank, hold_dir, {1: (name, None)}) as held:
+                if lead:
+                    refresher, box = _in_thread(ctl.refresh_now)
+                    held.hold(name, mesh.size)
+                    closer, _ = _in_thread(ctl.close)
+                    time.sleep(0.3)
+                    waited = closer.is_alive()
+                    held.release(name)
+                    closer.join(HOLD_S)
+                    refresher.join(HOLD_S)
+                    out[name] = dict(refreshed=dict(error=box.get("error"), value=box.get("value")),
+                                     close_waited=waited, closed=not closer.is_alive(), generation=gw.generation)
+                    gw.close()
+                else:
+                    out[name] = dict(refreshed=outcome(ctl.refresh_now))
+                    ctl.close()
+            out[name]["again"] = outcome(ctl.refresh_now)
+            out[name]["history"] = ctl.history
+            if gw is not None and not lead:
                 gw.close()
-            else:
-                out["close"] = dict(refreshed=outcome(ctl.refresh_now))
-                ctl.close()
-        out["close"]["again"] = outcome(ctl.refresh_now)
-        out["close"]["history"] = ctl.history
     out["threads_after_close"] = _live_threads()
     if lead:
         keys = sorted({(r.generation, r.bucket) for r in served if r is not None})
